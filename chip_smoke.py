@@ -7,18 +7,29 @@ Run from the root of a checkout, on a machine with a CUDA card, nvcc and
 CUDA PyTorch (no JAX needed). Phases, each printed as JSON lines:
 
 1. env      the card, torch/CUDA versions, TF32 flags (set off);
-2. build    the GR-MAC kernel built from ``src/repro_torch/csrc`` (nvcc
-            time, registers / shared memory / spills per instance);
-3. parity   the kernel against its plain version on the card at the
-            main path's shapes, ragged shapes and other formats: bitwise
-            at FP6_E3M2 x FP4_E2M1, within rtol = atol = 1e-5 elsewhere;
-4. timing   kernel and plain-version times (CUDA events) at the row
-            main-path shapes, beside the least time the card could take;
+2. build    the GR-MAC kernel built from ``src/repro_torch/csrc`` (one
+            nvcc per source, in parallel; registers / shared memory /
+            spills per instance);
+3. parity   each of the kernel's designs (decode, prefill) against its
+            plain version on the card at the main path's shapes, ragged
+            shapes, the n_r ladder and other formats (an fmt_x bf16
+            cannot hold through the decode design, its only route):
+            bitwise at FP6_E3M2 x FP4_E2M1, within rtol = atol = 1e-5
+            elsewhere; and ``cim_matmul`` with prepared (packed) weights
+            against the per-call path, bitwise;
+4. timing   kernel (packed weights, fused pre/post-scale; CUDA-graph
+            replay, and an eager loop that also pays the host's cost per
+            call) and plain-version times (CUDA events) at the row
+            main-path shapes and at M = 64
+            in both designs, beside the least time the card could take
+            with the weights at their stored bits and, for comparison, as
+            f32 (the first version's bound);
 5. serve    ``Engine`` serving paper-cim-120m at full width from seeded
             random weights: 8 requests, 32 greedy steps; every launch of
             the run is a kernel launch of the main path (85 per forward);
 6. profile  three more decode steps under ``torch.profiler``: the
-            device's idle share and the top kernels and host operators;
+            device's idle share, CUDA launches per step, and the top
+            kernels and host operators;
 7. oracle   the same run with ``cim_backend="ref"`` (plain version on the
             card): its token streams must be identical, a forward's
             logits must be finite and equal between the two, and a small
@@ -65,16 +76,17 @@ def ptxas_summary(log: str) -> list:
     """One line per compiled kernel instance from nvcc's -Xptxas -v."""
     out, name, spills = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"grmac_kernelI((?:Li-?\d+E)+)E", line)
+        m = re.search(r"(decode|prefill)_kernelI((?:Li-?\d+E)+)E", line)
         if "Compiling entry function" in line and m:
-            name = "<" + ",".join(re.findall(r"Li(-?\d+)E", m.group(1))) + ">"
+            name = m.group(1) + "<" + ",".join(
+                re.findall(r"Li(-?\d+)E", m.group(2))) + ">"
         elif "spill stores" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line and name:
             regs = re.search(r"Used (\d+) registers", line).group(1)
             smem = re.search(r"(\d+) bytes smem", line)
-            out.append(f"grmac_kernel{name} (n_r,gran,BM,BN,TM,TN): "
-                       f"{regs} regs, {smem.group(1) if smem else 0} B smem, "
+            out.append(f"{name}: {regs} regs, "
+                       f"{smem.group(1) if smem else 0} B static smem, "
                        f"{spills}")
             name = None
     return out
@@ -96,12 +108,43 @@ def cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(m: int, k: int, n: int, n_r: int):
+def graph_ms(fn, iters: int, reps: int = 5):
+    """Mean ms per call of ``iters`` calls captured in one CUDA graph and
+    replayed ``reps`` times (CUDA events around the replays): the device's
+    time for back-to-back launches, without the host's cost of issuing
+    each call, which a loop of eager calls would measure instead."""
+    import torch
+
+    fn(0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def bound_ms(m: int, k: int, n: int, n_r: int, w_bits: float = 32):
     """The least time the card could take for one (m, k) @ (k, n) GR-MAC
-    call: each input read once and the output written once at the HBM
-    rate, against the values dot on the bf16 tensor cores (exact for these
-    formats) and the per-(row, block, col) epilogue on the f32 pipe."""
-    t_bytes = 4 * (m * k + k * n + m * n) / HBM_BYTES_S
+    call: each input read once (x f32, the weights at ``w_bits`` each) and
+    the output written once at the HBM rate, against the values dot on the
+    bf16 tensor cores (exact for these formats) and the per-(row, block,
+    col) epilogue on the f32 pipe."""
+    t_bytes = (4 * (m * k + m * n) + k * n * w_bits / 8) / HBM_BYTES_S
     t_ops = max(2 * m * k * n / BF16_TC_FLOPS,
                 EPILOGUE_OPS * m * (k // n_r) * n / F32_FLOPS)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
@@ -124,11 +167,15 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.core.device import require_full_f32
     from repro_torch.core.formats import (FP4_E2M1, FP6_E2M3, FP6_E3M2,
-                                          FP8_E4M3, quantize)
+                                          FP8_E4M3, FPFormat, quantize)
+    from repro_torch.core.cim_config import CIMConfig
     from repro_torch.kernels.dispatch import grmac_matmul
-    from repro_torch.kernels.grmac_matmul import build, grmac_matmul_cuda
+    from repro_torch.kernels.grmac_matmul import (DESIGNS, build,
+                                                  grmac_matmul_cuda)
+    from repro_torch.kernels.ops import cim_matmul
+    from repro_torch.kernels.packed import pack_weight, unpack_weight
     from repro_torch.kernels.ref import grmac_matmul_ref
-    from repro_torch.models import forward, init_params
+    from repro_torch.models import forward, init_params, pack_params
     from repro_torch.serving import Engine, ServeConfig
 
     dev = torch.device("cuda")
@@ -160,38 +207,64 @@ def main() -> int:
         return x, quantize(w, fmt_w)
 
     main_fmt = (FP6_E3M2, FP4_E2M1)
+    wide = (FPFormat(3, 10), FP4_E2M1)   # bf16 would round fmt_x's values
     cases = []
     for gran in ("row", "conv", "unit"):
-        for m in (8, 512):
-            for k, n in ((768, 3072), (3072, 768), (768, 32000)):
+        for m in (8, 64, 512):
+            for k, n in ((768, 768), (768, 3072), (3072, 768), (768, 32000)):
                 cases.append((gran, m, k, n, 32, main_fmt))
         cases.append((gran, 5, 100, 100, 32, main_fmt))
+        cases.append((gran, 300, 200, 70, 16, main_fmt))
         for n_r in (16, 64, 128):
             cases.append((gran, 64, 768, 768, n_r, main_fmt))
         cases.append((gran, 64, 768, 768, 32, (FP8_E4M3, FP4_E2M1)))
         cases.append((gran, 37, 200, 300, 32, (FP6_E2M3, FP6_E2M3)))
+        cases.append((gran, 8, 768, 3072, 32, wide))
+        cases.append((gran, 512, 768, 768, 32, wide))
     max_abs_err = 0.0
     bad = []
     for gran, m, k, n, n_r, (fx, fw) in cases:
         x, w = operands(m, k, n, fw)
         kw = dict(fmt_x=fx, fmt_w=fw, n_r=n_r, enob=8.0, granularity=gran)
-        got = grmac_matmul(x, w, **kw)           # the kernel (K padded)
-        torch.cuda.synchronize()
         want = grmac_matmul(x, w, backend="ref", **kw)
-        diff = (got - want).abs()
-        mism = int((got != want).sum())
-        mad = float(diff.max())
         bitwise = (fx, fw) == main_fmt
-        ok = (mism == 0) if bitwise else bool(
-            torch.all(diff <= TOL + TOL * want.abs()))
-        max_abs_err = max(max_abs_err, mad)
-        emit({"phase": "parity", "granularity": gran, "m": m, "k": k, "n": n,
-              "n_r": n_r, "fmt_x": fx.name, "fmt_w": fw.name,
-              "mismatches": mism, "max_abs_diff": mad,
-              "bitwise_required": bitwise, "ok": ok})
-        if not ok:
-            bad.append((gran, m, k, n, n_r, fx.name, fw.name))
-        del x, w, got, want, diff
+        for design in (("decode",) if (fx, fw) == wide else DESIGNS):
+            got = grmac_matmul(x, w, design=design, **kw)   # the kernel
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            mism = int((got != want).sum())
+            mad = float(diff.max())
+            ok = (mism == 0) if bitwise else bool(
+                torch.all(diff <= TOL + TOL * want.abs()))
+            max_abs_err = max(max_abs_err, mad)
+            emit({"phase": "parity", "design": design, "granularity": gran,
+                  "m": m, "k": k, "n": n, "n_r": n_r, "fmt_x": fx.name,
+                  "fmt_w": fw.name, "mismatches": mism, "max_abs_diff": mad,
+                  "bitwise_required": bitwise, "ok": ok})
+            if not ok:
+                bad.append((design, gran, m, k, n, n_r, fx.name, fw.name))
+            del got, diff
+        del x, w, want
+    # cim_matmul with prepared weights against the per-call path (the weight
+    # pre-scaled and quantized on every call) and the plain version, at the
+    # main path's projections; the head's weight as a tied model's embed.T
+    for gran in ("row", "conv", "unit"):
+        cfg = CIMConfig(mode="grmac", granularity=gran)
+        for m, k, n in ((8, 768, 3072), (8, 3072, 768), (512, 768, 32000)):
+            x = torch.randn((m, k), generator=gen, device=dev) * 3
+            w = torch.randn((n, k), generator=gen, device=dev).T * 0.02
+            want = cim_matmul(x, w, cfg, backend="ref")
+            raw = cim_matmul(x, w, cfg)
+            got = cim_matmul(x, pack_weight(w, cfg.fmt_w, cfg.n_r), cfg)
+            torch.cuda.synchronize()
+            mism = int((got != want).sum()) + int((raw != want).sum())
+            emit({"phase": "parity", "cim_matmul": "packed and per-call vs "
+                  "plain", "granularity": gran, "m": m, "k": k, "n": n,
+                  "w_contiguous": w.is_contiguous(), "mismatches": mism,
+                  "ok": mism == 0})
+            if mism:
+                bad.append(("cim_matmul", gran, m, k, n))
+            del x, w, want, raw, got
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
 
@@ -205,40 +278,74 @@ def main() -> int:
                    ("lm head", d, v, 1)]
     if sum(p[3] for p in projections) != 85:
         fail("paper-cim-120m no longer has 85 projections per forward")
-    kw = dict(fmt_x=FP6_E3M2, fmt_w=FP4_E2M1, n_r=32, enob=8.0,
-              granularity="row")
-    shapes = []
+    fmt_x, fmt_w, n_r, enob = FP6_E3M2, FP4_E2M1, 32, 8.0
+    kw = dict(fmt_x=fmt_x, enob=enob, granularity="row")
+
+    def plain(x, pw, amax):
+        """What the kernel computes, in plain torch: the codes decoded, the
+        pre-scale, the plain GR-MAC, the post-scale."""
+        sx = torch.clamp(amax, min=1e-12)
+        return grmac_matmul(x / sx, unpack_weight(pw), fmt_x=fmt_x,
+                            fmt_w=fmt_w, n_r=n_r, enob=enob,
+                            granularity="row", backend="ref") * (sx * pw.sw)
+
     totals = {}
-    for phase_name, m in (("decode", 8), ("prefill", 512)):
-        # bound_ms split by the term that sets each launch's bound
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-               "bytes_bound_ms": 0.0, "operations_bound_ms": 0.0}
-        for name, k, n, per_fwd in projections:
-            # rotate over copies so that every launch finds its weights cold
-            # in the 50 MB L2, as one forward over 551 MB of weights does
-            copies = max(1, math.ceil(2 * 50e6 / (4 * k * n)))
-            xs = [operands(m, k, n, FP4_E2M1)[0] for _ in range(min(copies, 4))]
-            ws = [operands(1, k, n, FP4_E2M1)[1] for _ in range(copies)]
-            t_kernel = cuda_ms(lambda i: grmac_matmul_cuda(
-                xs[i % len(xs)], ws[i % copies], **kw), 50)
-            t_plain = cuda_ms(lambda i: grmac_matmul_ref(
-                xs[i % len(xs)], ws[i % copies], **kw),
-                5 if m * n >= 512 * 32000 else 20)
-            b_ms, b_by = bound_ms(m, k, n, 32)
-            rec = {"phase": "timing", "path": phase_name, "projection": name,
-                   "m": m, "k": k, "n": n, "launches_per_forward": per_fwd,
-                   "ms": t_kernel, "plain_ms": t_plain, "bound_ms": b_ms,
-                   "bound_by": b_by, "library_ms": None, "card": card}
-            emit(rec)
-            shapes.append(rec)
-            tot["ms"] += per_fwd * t_kernel
-            tot["plain_ms"] += per_fwd * t_plain
-            tot["bound_ms"] += per_fwd * b_ms
-            tot[f"{b_by}_bound_ms"] += per_fwd * b_ms
-            del xs, ws
-        totals[phase_name] = tot
-        emit({"phase": "timing", "path": phase_name,
-              "per_forward_85_launches": tot, "card": card})
+    for phase_name, m, designs in (("decode", 8, (None,)),
+                                   ("prefill", 512, (None,)),
+                                   ("m64", 64, ("decode", "prefill"))):
+        for design in designs:
+            # bound_ms split by the term that sets each launch's bound
+            tot = {"ms": 0.0, "eager_loop_ms": 0.0, "plain_ms": 0.0,
+                   "bound_ms": 0.0,
+                   "bytes_bound_ms": 0.0, "operations_bound_ms": 0.0,
+                   "f32_weight_bound_ms": 0.0}
+            for name, k, n, per_fwd in projections:
+                # rotate over copies so that every launch finds its weights
+                # cold in the 50 MB L2, as one forward over 69 MB of codes
+                copies = max(1, math.ceil(2 * 50e6 / (k * n / 2)))
+                xs = [operands(m, k, n, fmt_w)[0] for _ in range(4)]
+                amaxs = [torch.amax(torch.abs(x)) for x in xs]
+                ws = [pack_weight(torch.randn((k, n), generator=gen,
+                                              device=dev), fmt_w, n_r)
+                      for _ in range(copies)]
+                def call(i):
+                    return grmac_matmul_cuda(xs[i % 4], ws[i % copies],
+                                             amaxs[i % 4], design=design,
+                                             **kw)
+
+                before = dict(grmac_matmul_cuda.launches_by_design)
+                t_kernel = graph_ms(call, 20)
+                t_eager = cuda_ms(call, 50)
+                chosen = [d for d, c in grmac_matmul_cuda.launches_by_design
+                          .items() if c != before[d]]
+                t_plain = None
+                if design is None:
+                    t_plain = cuda_ms(lambda i: plain(
+                        xs[i % 4], ws[i % copies], amaxs[i % 4]),
+                        3 if m * n >= 512 * 32000 else 10)
+                b_ms, b_by = bound_ms(m, k, n, n_r, w_bits=fmt_w.bits)
+                f32_ms, _ = bound_ms(m, k, n, n_r)
+                rec = {"phase": "timing", "path": phase_name,
+                       "design": chosen, "projection": name, "m": m, "k": k,
+                       "n": n, "launches_per_forward": per_fwd,
+                       "ms": t_kernel, "eager_loop_ms": t_eager,
+                       "plain_ms": t_plain, "bound_ms": b_ms,
+                       "bound_by": b_by, "f32_weight_bound_ms": f32_ms,
+                       "library_ms": None, "card": card}
+                emit(rec)
+                tot["ms"] += per_fwd * t_kernel
+                tot["eager_loop_ms"] += per_fwd * t_eager
+                tot["plain_ms"] = (None if t_plain is None or tot["plain_ms"]
+                                   is None else tot["plain_ms"]
+                                   + per_fwd * t_plain)
+                tot["bound_ms"] += per_fwd * b_ms
+                tot[f"{b_by}_bound_ms"] += per_fwd * b_ms
+                tot["f32_weight_bound_ms"] += per_fwd * f32_ms
+                del xs, ws, amaxs
+            key = phase_name if design is None else f"{phase_name}_{design}"
+            totals[key] = tot
+            emit({"phase": "timing", "path": key,
+                  "per_forward_85_launches": tot, "card": card})
     torch.cuda.empty_cache()
 
     # -------------------------------------------------------------- serve
@@ -268,14 +375,17 @@ def main() -> int:
         return engine, prefill_ms, decode_ms, torch.cuda.max_memory_allocated()
 
     grmac_matmul_cuda.launches = 0
+    grmac_matmul_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
     engine, prefill_ms, decode_ms, peak = serve(None)
     launches = grmac_matmul_cuda.launches
+    by_design = dict(grmac_matmul_cuda.launches_by_design)
     dispatches = (engine.stats["prefill_dispatches"]
                   + engine.stats["decode_steps"])
     streams = [list(t) for t in engine.tokens]
     emit({"phase": "serve", "arch": arch.name, "batch_slots": 8,
           "max_ctx": 512, "prompt_lens": [len(p) for p in prompts],
           "stats": engine.stats, "kernel_launches": launches,
+          "kernel_launches_by_design": by_design,
           "expected_launches": 85 * dispatches,
           "prefill_ms": prefill_ms, "decode_ms": decode_ms,
           "decode_ms_median": float(np.median(decode_ms)),
@@ -312,12 +422,17 @@ def main() -> int:
     kernels = [e for e in events
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(dev_us(e) for e in kernels)
+    launch_calls = sum(e.count for e in events
+                       if e.key.startswith(("cudaLaunchKernel",
+                                            "cuLaunchKernel")))
     top_dev = sorted(kernels, key=dev_us, reverse=True)[:12]
     top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                      reverse=True)[:12]
     emit({"phase": "profile", "decode_steps": 3, "wall_us": wall_us,
           "device_busy_us": busy_us,
           "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
+          "cuda_launches_per_step": launch_calls / 3,
+          "device_ops_per_step": sum(e.count for e in kernels) / 3,
           "top_device": [(e.key, e.count, dev_us(e)) for e in top_dev],
           "top_cpu_self": [(e.key, e.count, e.self_cpu_time_total)
                            for e in top_cpu],
@@ -333,8 +448,10 @@ def main() -> int:
     logits_k, _, _ = forward(params, toks, arch)
     logits_r, _, _ = forward(params, toks, arch.replace(
         cim=arch.cim.with_backend("ref")))
+    logits_p, _, _ = forward(engine.params, toks, arch)   # packed weights
     finite = bool(torch.isfinite(logits_k).all())
-    logits_equal = bool(torch.equal(logits_k, logits_r))
+    logits_equal = bool(torch.equal(logits_k, logits_r)
+                        and torch.equal(logits_p, logits_r))
     # the same small model on the CPU (plain version) and on the card
     # (kernel): equal greedy ids, logits within 1e-5 (the devices' torch
     # kernels sum norms, softmax and attention in different orders)
@@ -376,14 +493,21 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_abs_err,
         "checked_vs_plain": True,
-        # times of the 85 row launches of one decode forward (M = 8)
+        "launches_by_design": by_design,
+        # times of the 85 row launches of one decode forward (M = 8), the
+        # weights packed in 4 bits; the bound at their stored bits. "ms" is
+        # device time by CUDA-graph replay; "eager_loop_ms" the same
+        # launches timed as an eager loop (also the host's cost per call)
         "ms": dec["ms"],
+        "eager_loop_ms": dec["eager_loop_ms"],
         "plain_ms": dec["plain_ms"],
         "bound_ms": dec["bound_ms"],
         "bound_by": ("bytes" if dec["bytes_bound_ms"]
                      >= dec["operations_bound_ms"] else "operations"),
         "library_ms": None,
         "prefill_forward": totals["prefill"],
+        "m64_forward_by_design": {d: totals[f"m64_{d}"]["ms"]
+                                  for d in ("decode", "prefill")},
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -15,6 +15,10 @@ backend    implementation
 ``ref``    the plain version wherever the tensor lies (the oracle the
            kernel is held against on the card)
 =========  ==============================================================
+
+On the card ``wq`` is encoded into codes (``packed.pack_quantized``, with
+unit scales, checked to decode back to ``wq``) for the kernel, which reads
+weights only as codes; ``kernels.ops`` serves prepared weights directly.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.core.formats import FPFormat
 
 from .grmac_matmul import grmac_matmul_cuda
+from .packed import pack_quantized, unpack_weight
 from .ref import grmac_matmul_ref
 
 __all__ = ["BACKENDS", "resolve_backend", "pad_to_multiple", "grmac_matmul"]
@@ -60,16 +65,23 @@ def grmac_matmul(
     enob: float = 8.0,
     granularity: str = "row",
     backend: Optional[str] = None,
+    design: Optional[str] = None,
 ) -> torch.Tensor:
     """(M, K) @ (K, N) GR-MAC matmul; float32 out.
 
     ``x`` pre-scaled to [-1, 1]; ``wq`` already on the weight format grid.
+    ``design`` forces one of the kernel's designs (None: its own choice).
     """
     b = resolve_backend(backend)
-    kwargs = dict(fmt_x=fmt_x, fmt_w=fmt_w, n_r=n_r, enob=enob,
-                  granularity=granularity)
-    xp = pad_to_multiple(x, 1, n_r)
-    wp = pad_to_multiple(wq, 0, n_r)
     if b == "ref" or x.device.type == "cpu":
-        return grmac_matmul_ref(xp, wp, **kwargs)
-    return grmac_matmul_cuda(xp, wp, **kwargs)
+        return grmac_matmul_ref(
+            pad_to_multiple(x, 1, n_r), pad_to_multiple(wq, 0, n_r),
+            fmt_x=fmt_x, fmt_w=fmt_w, n_r=n_r, enob=enob,
+            granularity=granularity)
+    one = torch.ones((), dtype=torch.float32, device=wq.device)
+    packed = pack_quantized(wq.to(torch.float32), one, fmt_w, n_r)
+    if not torch.equal(unpack_weight(packed)[:wq.shape[0]], wq):
+        raise ValueError(f"wq is not on the {fmt_w.name} grid")
+    return grmac_matmul_cuda(x.to(torch.float32).contiguous(), packed, one,
+                             fmt_x=fmt_x, enob=enob, granularity=granularity,
+                             design=design)

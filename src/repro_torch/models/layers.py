@@ -19,6 +19,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cim_config import CIMConfig
 from repro_torch.kernels.ops import cim_matmul
+from repro_torch.kernels.packed import PackedWeight
 
 __all__ = ["dense", "rmsnorm", "rope", "attention", "mlp"]
 
@@ -27,9 +28,11 @@ _NEG_INF = -1e30
 
 def dense(p, x, cim: Optional[CIMConfig] = None, site: str = "mlp",
           logical_n: Optional[int] = None):
-    """x @ W (+ b), through the CIM simulation resolved for this site."""
-    y = cim_matmul(x, p["w"].to(x.dtype), cim, site=site,
-                   logical_n=logical_n)
+    """x @ W (+ b), through the CIM simulation resolved for this site.
+    ``W`` is a tensor or, in served params, a ``PackedWeight``."""
+    w = p["w"]
+    y = cim_matmul(x, w if isinstance(w, PackedWeight) else w.to(x.dtype),
+                   cim, site=site, logical_n=logical_n)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y

@@ -23,12 +23,15 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.core.formats import IntFormat
 from repro_torch.kernels.ops import cim_matmul
+from repro_torch.kernels.packed import pack_weight
 from repro_torch.models import layers as L
 
 __all__ = [
     "init_params",
     "init_cache",
+    "pack_params",
     "forward",
     "train_loss",
     "decode_step",
@@ -104,6 +107,36 @@ def init_params(cfg: ArchConfig, seed: int,
     return params
 
 
+def pack_params(params: dict, cfg: ArchConfig) -> dict:
+    """Served params: each CIM site's weight packed once
+    (``kernels.packed.pack_weight``) under the design ``cfg.cim.for_site``
+    resolves there, so no call re-quantizes it. Sites that do not run
+    grmac with an FP input and a weight format of at most 8 bits keep
+    their tensor. A tied head gets its own packed ``embed.T`` as
+    ``"lm_head"``; the embedding table stays for the lookup. The input is
+    not changed; untouched tensors are shared."""
+    dt = _dtype(cfg)
+
+    def pack(w, site):
+        eff = cfg.cim.for_site(site)
+        if (eff.mode != "grmac" or isinstance(eff.fmt_x, IntFormat)
+                or eff.fmt_w.bits > 8):
+            return w
+        return pack_weight(w.to(dt), eff.fmt_w, eff.n_r)
+
+    def packed(group, site_of):
+        return {name: dict(d, w=pack(d["w"], site_of(name)))
+                for name, d in group.items()}
+
+    layers = [dict(p, attn=packed(p["attn"], lambda name: "attn_o"
+                                  if name == "wo" else "attn_qkv"),
+                   ffn=packed(p["ffn"], lambda name: "mlp"))
+              for p in params["layers"]]
+    head = params.get("lm_head", {"w": params["embed"].T})
+    return dict(params, layers=layers, lm_head=dict(head, w=pack(head["w"],
+                                                                  "head")))
+
+
 # ------------------------------------------------------------------ caches
 def init_cache(cfg: ArchConfig, batch: int, ctx_len: int,
                dtype: torch.dtype = torch.bfloat16,
@@ -168,13 +201,14 @@ def forward(
         x, _ = _apply_layer(p_l, x, cfg, positions, c, cache_index,
                             chunk_lengths, active)
     x = L.rmsnorm(params["final_norm"], x)
-    # the LM head is a CIM site in both tied and untied form
-    if cfg.tie_embeddings:
-        logits = cim_matmul(x, params["embed"].T.to(x.dtype), cfg.cim,
-                            site="head", logical_n=cfg.vocab_size)
-    else:
+    # the LM head is a CIM site in both tied and untied form (served params
+    # carry a tied head's packed embed.T as "lm_head")
+    if "lm_head" in params:
         logits = L.dense(params["lm_head"], x, cfg.cim, "head",
                          logical_n=cfg.vocab_size)
+    else:
+        logits = cim_matmul(x, params["embed"].T.to(x.dtype), cfg.cim,
+                            site="head", logical_n=cfg.vocab_size)
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(logits.shape[-1], device=dev) >= cfg.vocab_size
         logits = torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,

@@ -26,6 +26,12 @@ runs one bucketed chunk, ``finish_prefill`` selects the first token and
 activates the lane; ``add_request`` is their blocking composition.
 ``release_slot`` frees a lane; ``free_slots`` counts claimable ones.
 
+Weights: the engine packs every CIM site's weight once at construction
+(``models.pack_params``: the per-call pre-scale and quantization of the
+reference done once, stored as 4-bit or 8-bit format codes), so a
+dispatch re-quantizes no weight. ``cim_backend="ref"`` keeps the raw
+weights and the per-call path: it is the independent oracle.
+
 Not ported yet: sampling (``temperature > 0`` raises), the prefix cache,
 the speculative-decode seams and the energy report.
 """
@@ -39,7 +45,8 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import require_full_f32, resolve_device
-from repro_torch.models import decode_step, init_cache, prefill_step
+from repro_torch.models import (decode_step, init_cache,
+                                pack_params, prefill_step)
 from repro_torch.serving.params import RequestOutput, SamplingParams
 
 __all__ = ["ServeConfig", "Engine", "StepResult", "SamplingParams",
@@ -98,7 +105,8 @@ class Engine:
             arch = arch.replace(cim=arch.cim.with_backend(cfg.cim_backend))
         self.arch = arch
         self.cfg = cfg
-        self.params = params
+        self.params = (params if arch.cim.backend == "ref"
+                       else pack_params(params, arch))
         self.cache = init_cache(arch, cfg.batch_slots, cfg.max_ctx,
                                 getattr(torch, cfg.cache_dtype), self.device)
         b = cfg.batch_slots

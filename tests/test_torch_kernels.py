@@ -33,6 +33,7 @@ from repro_torch.kernels.dispatch import (  # noqa: E402
 )
 from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda  # noqa: E402
 from repro_torch.kernels.ops import cim_matmul as torch_cim_matmul  # noqa: E402
+from repro_torch.kernels.packed import pack_quantized  # noqa: E402
 
 GRANULARITIES = ["row", "conv", "unit"]
 
@@ -116,8 +117,11 @@ def test_dispatch_backends_and_device_contract():
     assert torch.equal(a, b)
     # the kernel's wrapper never falls back: a CPU tensor is refused
     before = grmac_matmul_cuda.launches
+    one = torch.ones(())
+    packed = pack_quantized(torch.tensor(wq), one, tf.FP4_E2M1, 32)
     with pytest.raises(ValueError, match="CUDA"):
-        grmac_matmul_cuda(torch.tensor(x), torch.tensor(wq), **kw)
+        grmac_matmul_cuda(torch.tensor(x), packed, one, fmt_x=tf.FP6_E3M2,
+                          granularity="row")
     assert grmac_matmul_cuda.launches == before
 
 
