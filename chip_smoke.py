@@ -1,39 +1,55 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a CUDA card, nvcc and
-CUDA PyTorch (no JAX needed). Phases, each printed as JSON lines:
+CUDA PyTorch (no JAX needed). Phases, each printed as JSON lines with its
+seconds:
 
 1. env      the card, torch/CUDA versions, TF32 flags (set off);
 2. build    the GR-MAC kernel built from ``src/repro_torch/csrc`` (one
             nvcc per source, in parallel; registers / shared memory /
             spills per instance);
 3. parity   each of the kernel's designs (decode, prefill) against its
-            plain version on the card at the main path's shapes, ragged
-            shapes, the n_r ladder and other formats (an fmt_x bf16
-            cannot hold through the decode design, its only route):
-            bitwise at FP6_E3M2 x FP4_E2M1, within rtol = atol = 1e-5
-            elsewhere; and ``cim_matmul`` with prepared (packed) weights
-            against the per-call path, bitwise;
+            plain version on the card at the served models' shapes
+            (paper-cim-120m's, and gemma3-1b's, mamba2-1.3b's and
+            recurrentgemma-9b's new ones: N = 64 and 256, K = 1152, 4096
+            and 6912, the 262 144-wide tied head), ragged shapes, the n_r
+            ladder and other formats (an fmt_x bf16 cannot hold goes
+            through the decode design, its only route): bitwise at
+            FP6_E3M2 x FP4_E2M1, within rtol = atol = 1e-5 elsewhere; and
+            ``cim_matmul`` with prepared (packed) weights against the
+            per-call path, bitwise;
 4. timing   kernel (packed weights, fused pre/post-scale; CUDA-graph
             replay, and an eager loop that also pays the host's cost per
             call) and plain-version times (CUDA events) at the row
-            main-path shapes and at M = 64
-            in both designs, beside the least time the card could take
-            with the weights at their stored bits and, for comparison, as
-            f32 (the first version's bound);
-5. serve    ``Engine`` serving paper-cim-120m at full width from seeded
-            random weights: 8 requests, 32 greedy steps; every launch of
-            the run is a kernel launch of the main path (85 per forward);
-6. profile  three more decode steps under ``torch.profiler``: the
-            device's idle share, CUDA launches per step, and the top
-            kernels and host operators;
-7. oracle   the same run with ``cim_backend="ref"`` (plain version on the
-            card): its token streams must be identical, a forward's
-            logits must be finite and equal between the two, and a small
-            model's logits on the card must match the CPU's.
+            projections of paper-cim-120m (M = 8, 512, and 64 in both
+            designs) and gemma3-1b (M = 8 and 128), beside the least time
+            the card could take with the weights at their stored bits and,
+            for comparison, as f32;
+5. serve    one path per model, each from seeded random weights with every
+            projection through GR-MAC row (FP6_E3M2 x FP4_E2M1, n_r 32,
+            ENOB 8), 8 slots of greedy traffic, the launch counts set to 0
+            just before and read just after (they must be the model's
+            projections per forward times its dispatches):
+              serve              paper-cim-120m, full width and depth,
+                                 32 decode steps (85 launches a forward);
+              serve_gemma3       gemma3-1b, full width and depth (183),
+                                 max_ctx 1024, prompts past the 512-token
+                                 window: the rings wrap inside a chunked
+                                 prefill and in decode;
+              serve_mamba2       mamba2-1.3b, full width and depth (193);
+              serve_recurrentgemma  recurrentgemma-9b at full width, depth
+                                 cut from 38 layers to one super-block
+                                 (rglru, rglru, local; 22);
+            then, for each path: a profile of three more decode steps
+            (device idle share, CUDA launches per step, top kernels and
+            host operators); the same traffic through the plain version
+            on the card (``cim_backend="ref"``), whose token streams must
+            be identical; and the model's reduced config on the CPU and on
+            the card, whose logits must agree within 1e-5 (5e-5 for
+            recurrentgemma, whose RG-LRU amplifies an ulp of exp).
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` prints them, and a last line
@@ -41,6 +57,7 @@ Then the ``kernels`` summary line, the card's name and power limit as
 last line; so does a machine without a CUDA card, or a directory without
 the port's sources.
 """
+import gc
 import json
 import math
 import re
@@ -52,6 +69,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 TOL = 1e-5
 SEED = 0
+SLOTS = 8
+# The CPU-against-card bound of a reduced config where 1e-5 cannot hold:
+# RG-LRU takes sqrt(1 - a^2) at a = exp(log a) up to 0.999, where one ulp
+# of a moves the factor by 3e-5 of its value, so the two devices' exp, an
+# ulp apart, part the reduced recurrentgemma's logits by up to 1.8e-5
+# (measured on an H100 against its host's CPU).
+SMALL_ATOL = {"recurrentgemma-9b": 5e-5}
 
 # H100 SXM data sheet (dense): HBM rate, bf16 tensor-core and f32 peaks.
 HBM_BYTES_S = 3.35e12
@@ -151,6 +175,40 @@ def bound_ms(m: int, k: int, n: int, n_r: int, w_bits: float = 32):
                                        else "operations")
 
 
+def projections(arch) -> list:
+    """(name, K, N, launches per forward) of every CIM projection of one
+    forward, the LM head last: the kernel's launches per dispatch."""
+    d, f = arch.d_model, arch.d_ff
+    ffn = 3 if arch.gated_mlp else 2
+    count = {k: arch.blocks().count(k) for k in ("attn", "local", "rglru",
+                                                 "ssm")}
+    n_att = count["attn"] + count["local"]
+    w, di = arch.rnn_width, arch.d_inner
+    qd, kvd = arch.n_heads * arch.d_head, arch.n_kv_heads * arch.d_head
+    out = []
+    if n_att:
+        out += [("attn wq", d, qd, n_att), ("attn wk/wv", d, kvd, 2 * n_att),
+                ("attn wo", qd, d, n_att)]
+    if count["rglru"]:
+        out += [("rglru in/gate_r/gate_i", d, w, 3 * count["rglru"]),
+                ("rglru out_proj", w, d, count["rglru"])]
+    if count["ssm"]:
+        n = count["ssm"]
+        out += [("ssm in_proj", d, 2 * di, n),
+                ("ssm bc_proj", d, 2 * arch.ssm_state, n),
+                ("ssm dt_proj", d, arch.ssm_heads, n),
+                ("ssm out_proj", di, d, n)]
+    n_ffn = n_att + count["rglru"]
+    if n_ffn:
+        out += [("mlp wi/wg", d, f, (ffn - 1) * n_ffn),
+                ("mlp wo", f, d, n_ffn)]
+    return out + [("lm head", d, arch.padded_vocab, 1)]
+
+
+def per_forward(arch) -> int:
+    return sum(p[3] for p in projections(arch))
+
+
 def main() -> int:
     import torch
 
@@ -174,8 +232,8 @@ def main() -> int:
                                                   grmac_matmul_cuda)
     from repro_torch.kernels.ops import cim_matmul
     from repro_torch.kernels.packed import pack_weight, unpack_weight
-    from repro_torch.kernels.ref import grmac_matmul_ref
-    from repro_torch.models import forward, init_params, pack_params
+    from repro_torch.models import (decode_step, forward, init_cache,
+                                    init_params, prefill_step)
     from repro_torch.serving import Engine, ServeConfig
 
     dev = torch.device("cuda")
@@ -184,6 +242,18 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
+    t_start = time.perf_counter()
+    t_phase = [t_start]
+
+    def seconds(name):
+        now = time.perf_counter()
+        emit({"phase": "seconds", "of": name, "seconds": now - t_phase[0],
+              "since_start": now - t_start})
+        t_phase[0] = now
+
+    def reset_counts():
+        grmac_matmul_cuda.launches = 0
+        grmac_matmul_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
 
     # ---------------------------------------------------------------- env
     require_full_f32()
@@ -192,11 +262,20 @@ def main() -> int:
           "device": torch.cuda.get_device_name(0),
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
+    archs = {name: get_config(name) for name in (
+        "paper-cim-120m", "gemma3-1b", "mamba2-1.3b", "recurrentgemma-9b")}
+    archs["recurrentgemma-9b"] = archs["recurrentgemma-9b"].replace(
+        n_layers=3)
+    for name, want in (("paper-cim-120m", 85), ("gemma3-1b", 183),
+                       ("mamba2-1.3b", 193), ("recurrentgemma-9b", 22)):
+        if per_forward(archs[name]) != want:
+            fail(f"{name} no longer has {want} projections per forward")
 
     # -------------------------------------------------------------- build
     info = build()
     emit({"phase": "build", "seconds": info.seconds, "library": info.path,
           "ptxas": ptxas_summary(info.ptxas)})
+    seconds("build")
 
     # ------------------------------------------------------------- parity
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -213,6 +292,13 @@ def main() -> int:
         for m in (8, 64, 512):
             for k, n in ((768, 768), (768, 3072), (3072, 768), (768, 32000)):
                 cases.append((gran, m, k, n, 32, main_fmt))
+        # the new block kinds' shapes: mamba2's dt_proj (N 64) and bc_proj
+        # (N 256), gemma3's d_model 1152 and d_ff 6912, recurrentgemma's
+        # 4096; M 8 and 40 on either side of the designs' switch
+        for m in (8, 40):
+            for k, n in ((2048, 64), (2048, 256), (1152, 6912), (6912, 1152),
+                         (4096, 4096)):
+                cases.append((gran, m, k, n, 32, main_fmt))
         cases.append((gran, 5, 100, 100, 32, main_fmt))
         cases.append((gran, 300, 200, 70, 16, main_fmt))
         for n_r in (16, 64, 128):
@@ -221,6 +307,8 @@ def main() -> int:
         cases.append((gran, 37, 200, 300, 32, (FP6_E2M3, FP6_E2M3)))
         cases.append((gran, 8, 768, 3072, 32, wide))
         cases.append((gran, 512, 768, 768, 32, wide))
+    # gemma3's tied head, 262 144 columns, in row granularity
+    cases += [("row", m, 1152, 262144, 32, main_fmt) for m in (8, 40)]
     max_abs_err = 0.0
     bad = []
     for gran, m, k, n, n_r, (fx, fw) in cases:
@@ -267,17 +355,10 @@ def main() -> int:
             del x, w, want, raw, got
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
+    torch.cuda.empty_cache()
+    seconds("parity")
 
     # ------------------------------------------------------------- timing
-    arch = get_config("paper-cim-120m")
-    d, f, v, n_layers = arch.d_model, arch.d_ff, arch.vocab_size, arch.n_layers
-    # (name, K, N, launches per forward) of the row main path
-    projections = [("wq/wk/wv/wo", d, d, 4 * n_layers),
-                   ("mlp wi/wg", d, f, 2 * n_layers),
-                   ("mlp wo", f, d, n_layers),
-                   ("lm head", d, v, 1)]
-    if sum(p[3] for p in projections) != 85:
-        fail("paper-cim-120m no longer has 85 projections per forward")
     fmt_x, fmt_w, n_r, enob = FP6_E3M2, FP4_E2M1, 32, 8.0
     kw = dict(fmt_x=fmt_x, enob=enob, granularity="row")
 
@@ -289,76 +370,135 @@ def main() -> int:
                             fmt_w=fmt_w, n_r=n_r, enob=enob,
                             granularity="row", backend="ref") * (sx * pw.sw)
 
-    totals = {}
-    for phase_name, m, designs in (("decode", 8, (None,)),
-                                   ("prefill", 512, (None,)),
-                                   ("m64", 64, ("decode", "prefill"))):
-        for design in designs:
-            # bound_ms split by the term that sets each launch's bound
-            tot = {"ms": 0.0, "eager_loop_ms": 0.0, "plain_ms": 0.0,
-                   "bound_ms": 0.0,
-                   "bytes_bound_ms": 0.0, "operations_bound_ms": 0.0,
-                   "f32_weight_bound_ms": 0.0}
-            for name, k, n, per_fwd in projections:
-                # rotate over copies so that every launch finds its weights
-                # cold in the 50 MB L2, as one forward over 69 MB of codes
-                copies = max(1, math.ceil(2 * 50e6 / (k * n / 2)))
-                xs = [operands(m, k, n, fmt_w)[0] for _ in range(4)]
-                amaxs = [torch.amax(torch.abs(x)) for x in xs]
-                ws = [pack_weight(torch.randn((k, n), generator=gen,
-                                              device=dev), fmt_w, n_r)
-                      for _ in range(copies)]
-                def call(i):
-                    return grmac_matmul_cuda(xs[i % 4], ws[i % copies],
-                                             amaxs[i % 4], design=design,
-                                             **kw)
+    def time_forward(path, arch, m, design):
+        """Times of one forward's row launches at M = m: each projection
+        shape, then the forward's sum weighted by launches per forward."""
+        # bound_ms split by the term that sets each launch's bound
+        tot = {"ms": 0.0, "eager_loop_ms": 0.0, "plain_ms": 0.0,
+               "bound_ms": 0.0, "bytes_bound_ms": 0.0,
+               "operations_bound_ms": 0.0, "f32_weight_bound_ms": 0.0}
+        shapes = {}               # projections of one shape timed once
+        for name, k, n, per_fwd in projections(arch):
+            names, count = shapes.get((k, n), ([], 0))
+            shapes[(k, n)] = (names + [name], count + per_fwd)
+        for (k, n), (names, per_fwd) in shapes.items():
+            name = " + ".join(names)
+            # rotate over copies so that every launch finds its weights
+            # cold in the 50 MB L2, as in a forward over all the codes
+            copies = max(1, math.ceil(2 * 50e6 / (k * n / 2)))
+            xs = [operands(m, k, n, fmt_w)[0] for _ in range(4)]
+            amaxs = [torch.amax(torch.abs(x)) for x in xs]
+            ws = [pack_weight(torch.randn((k, n), generator=gen, device=dev),
+                              fmt_w, n_r) for _ in range(copies)]
 
-                before = dict(grmac_matmul_cuda.launches_by_design)
-                t_kernel = graph_ms(call, 20)
-                t_eager = cuda_ms(call, 50)
-                chosen = [d for d, c in grmac_matmul_cuda.launches_by_design
-                          .items() if c != before[d]]
-                t_plain = None
-                if design is None:
-                    t_plain = cuda_ms(lambda i: plain(
-                        xs[i % 4], ws[i % copies], amaxs[i % 4]),
-                        3 if m * n >= 512 * 32000 else 10)
-                b_ms, b_by = bound_ms(m, k, n, n_r, w_bits=fmt_w.bits)
-                f32_ms, _ = bound_ms(m, k, n, n_r)
-                rec = {"phase": "timing", "path": phase_name,
-                       "design": chosen, "projection": name, "m": m, "k": k,
-                       "n": n, "launches_per_forward": per_fwd,
-                       "ms": t_kernel, "eager_loop_ms": t_eager,
-                       "plain_ms": t_plain, "bound_ms": b_ms,
-                       "bound_by": b_by, "f32_weight_bound_ms": f32_ms,
-                       "library_ms": None, "card": card}
-                emit(rec)
-                tot["ms"] += per_fwd * t_kernel
-                tot["eager_loop_ms"] += per_fwd * t_eager
-                tot["plain_ms"] = (None if t_plain is None or tot["plain_ms"]
-                                   is None else tot["plain_ms"]
-                                   + per_fwd * t_plain)
-                tot["bound_ms"] += per_fwd * b_ms
-                tot[f"{b_by}_bound_ms"] += per_fwd * b_ms
-                tot["f32_weight_bound_ms"] += per_fwd * f32_ms
-                del xs, ws, amaxs
-            key = phase_name if design is None else f"{phase_name}_{design}"
-            totals[key] = tot
-            emit({"phase": "timing", "path": key,
-                  "per_forward_85_launches": tot, "card": card})
-    torch.cuda.empty_cache()
+            def call(i):
+                return grmac_matmul_cuda(xs[i % 4], ws[i % copies],
+                                         amaxs[i % 4], design=design, **kw)
+
+            before = dict(grmac_matmul_cuda.launches_by_design)
+            t_kernel = graph_ms(call, 20)
+            t_eager = cuda_ms(call, 50)
+            chosen = [d for d, c in grmac_matmul_cuda.launches_by_design
+                      .items() if c != before[d]]
+            t_plain = None
+            if design is None:
+                t_plain = cuda_ms(lambda i: plain(
+                    xs[i % 4], ws[i % copies], amaxs[i % 4]),
+                    3 if m * n >= 512 * 32000 else 10)
+            b_ms, b_by = bound_ms(m, k, n, n_r, w_bits=fmt_w.bits)
+            f32_ms, _ = bound_ms(m, k, n, n_r)
+            emit({"phase": "timing", "path": path, "arch": arch.name,
+                  "design": chosen, "projection": name, "m": m, "k": k,
+                  "n": n, "launches_per_forward": per_fwd,
+                  "ms": t_kernel, "eager_loop_ms": t_eager,
+                  "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
+                  "f32_weight_bound_ms": f32_ms, "library_ms": None,
+                  "card": card})
+            tot["ms"] += per_fwd * t_kernel
+            tot["eager_loop_ms"] += per_fwd * t_eager
+            tot["plain_ms"] = (None if t_plain is None or tot["plain_ms"]
+                               is None else tot["plain_ms"]
+                               + per_fwd * t_plain)
+            tot["bound_ms"] += per_fwd * b_ms
+            tot[f"{b_by}_bound_ms"] += per_fwd * b_ms
+            tot["f32_weight_bound_ms"] += per_fwd * f32_ms
+            del xs, ws, amaxs
+            torch.cuda.empty_cache()
+        emit({"phase": "timing", "path": path, "arch": arch.name,
+              "per_forward": tot, "launches_per_forward": per_forward(arch),
+              "card": card})
+        return tot
+
+    totals = {}
+    paper = archs["paper-cim-120m"]
+    for key, arch, m, design in (
+            ("decode", paper, 8, None), ("prefill", paper, 512, None),
+            ("m64_decode", paper, 64, "decode"),
+            ("m64_prefill", paper, 64, "prefill"),
+            # gemma3-1b served: 8 slots, prefill chunks of 16 tokens
+            ("gemma3_decode", archs["gemma3-1b"], 8, None),
+            ("gemma3_prefill", archs["gemma3-1b"], 128, None)):
+        totals[key] = time_forward(key, arch, m, design)
+    seconds("timing")
 
     # -------------------------------------------------------------- serve
-    params = init_params(arch, SEED, device=dev)
-    rng = np.random.default_rng(SEED)
-    prompts = [[int(t) for t in rng.integers(0, v, n)]
-               for n in (5, 8, 12, 17, 24, 33, 40, 60)]
-    n_steps = 32
+    from torch.profiler import ProfilerActivity, profile
 
-    def serve(backend):
-        engine = Engine(arch, params,
-                        ServeConfig(batch_slots=8, max_ctx=512,
-                                    cim_backend=backend), device=dev)
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    def profiled(path, what, fn, count):
+        """``fn`` under torch.profiler: the device's busy share of the wall
+        time, CUDA launches per ``count`` (steps or dispatches) and the
+        top kernels and host operators."""
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+        # device-side entries only: an operator's own row repeats its kernels
+        kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_us = sum(dev_us(e) for e in kernels)
+        launch_calls = sum(e.count for e in events
+                           if e.key.startswith(("cudaLaunchKernel",
+                                                "cuLaunchKernel")))
+        top_dev = sorted(kernels, key=dev_us, reverse=True)[:12]
+        top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
+                         reverse=True)[:12]
+        emit({"phase": "profile", "path": path, "of": what, "count": count,
+              "wall_us": wall_us, "device_busy_us": busy_us,
+              "device_idle_share": (1 - busy_us / wall_us) if busy_us
+              else None,
+              "cuda_launches_per": launch_calls / count,
+              "device_ops_per": sum(e.count for e in kernels) / count,
+              "top_device": [(e.key, e.count, dev_us(e)) for e in top_dev],
+              "top_cpu_self": [(e.key, e.count, e.self_cpu_time_total)
+                               for e in top_cpu],
+              "card": card})
+
+    def profile_path(path, engine, arch, bucket):
+        """Three more decode steps, then one full-bucket prefill dispatch
+        into a freed slot (the recurrences' per-token loop shows there)."""
+        def steps():
+            for _ in range(3):
+                engine.step()
+
+        def prefill():
+            engine.release_slot(0)
+            engine.add_request([int(t) for t in
+                                rng.integers(0, arch.vocab_size, bucket)])
+
+        profiled(path, "decode_step", steps, 3)
+        profiled(path, f"prefill_dispatch_of_{bucket}_tokens", prefill, 1)
+
+    def run_engine(arch, params, prompts, n_steps, serve_kw, backend):
+        engine = Engine(arch, params, ServeConfig(
+            batch_slots=SLOTS, cim_backend=backend, **serve_kw), device=dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         prefill_ms, decode_ms = [], []
@@ -374,88 +514,135 @@ def main() -> int:
             decode_ms.append(1e3 * (time.perf_counter() - t0))
         return engine, prefill_ms, decode_ms, torch.cuda.max_memory_allocated()
 
-    grmac_matmul_cuda.launches = 0
-    grmac_matmul_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
-    engine, prefill_ms, decode_ms, peak = serve(None)
-    launches = grmac_matmul_cuda.launches
-    by_design = dict(grmac_matmul_cuda.launches_by_design)
-    dispatches = (engine.stats["prefill_dispatches"]
-                  + engine.stats["decode_steps"])
-    streams = [list(t) for t in engine.tokens]
-    emit({"phase": "serve", "arch": arch.name, "batch_slots": 8,
-          "max_ctx": 512, "prompt_lens": [len(p) for p in prompts],
-          "stats": engine.stats, "kernel_launches": launches,
-          "kernel_launches_by_design": by_design,
-          "expected_launches": 85 * dispatches,
-          "prefill_ms": prefill_ms, "decode_ms": decode_ms,
-          "decode_ms_median": float(np.median(decode_ms)),
-          "decode_tok_s_median": 8e3 / float(np.median(decode_ms)),
-          "peak_mem_bytes": peak, "card": card})
-    if launches != 85 * dispatches:
-        fail(f"{launches} kernel launches for {dispatches} dispatches "
-             f"(expected 85 each)")
-    if any(len(s) != len(p) + 1 + n_steps for s, p in zip(streams, prompts)):
-        fail("a request did not emit 1 + n_steps tokens")
-    if not all(0 <= t < v for s in streams for t in s):
-        fail("a token id outside the vocabulary")
+    launches_by_path = {}
+    by_design_total = dict.fromkeys(DESIGNS, 0)
 
-    # ------------------------------------------------------------ profile
-    # three more decode steps of the same engine under torch.profiler: the
-    # device's busy share of the wall time and the top kernels by time
-    from torch.profiler import ProfilerActivity, profile
+    def serve_path(path, arch, params, prompts, n_steps, serve_kw,
+                   extra=None, keep_engine=False):
+        """Serve ``prompts`` and ``n_steps`` greedy steps through the
+        kernel with the counts set to 0 just before and read just after,
+        profile, then the same traffic through the plain version: the
+        streams must be identical. Returns the kernel's engine if asked."""
+        v = arch.vocab_size
+        fwd = per_forward(arch)
+        reset_counts()
+        engine, prefill_ms, decode_ms, peak = run_engine(
+            arch, params, prompts, n_steps, serve_kw, None)
+        launches = grmac_matmul_cuda.launches
+        by_design = dict(grmac_matmul_cuda.launches_by_design)
+        launches_by_path[path] = launches
+        for d in DESIGNS:
+            by_design_total[d] += by_design[d]
+        dispatches = (engine.stats["prefill_dispatches"]
+                      + engine.stats["decode_steps"])
+        streams = [list(t) for t in engine.tokens]
+        emit({"phase": path, "arch": arch.name, "batch_slots": SLOTS,
+              **serve_kw, **(extra or {}),
+              "prompt_lens": [len(p) for p in prompts],
+              "stats": engine.stats, "kernel_launches": launches,
+              "kernel_launches_by_design": by_design,
+              "launches_per_forward": fwd,
+              "expected_launches": fwd * dispatches,
+              "prefill_ms": prefill_ms, "decode_ms": decode_ms,
+              "decode_ms_median": float(np.median(decode_ms)),
+              "decode_tok_s_median": SLOTS * 1e3 / float(np.median(
+                  decode_ms)),
+              "peak_mem_bytes": peak, "card": card})
+        if launches != fwd * dispatches:
+            fail(f"{path}: {launches} kernel launches for {dispatches} "
+                 f"dispatches (expected {fwd} each)")
+        if any(len(s) != len(p) + 1 + n_steps
+               for s, p in zip(streams, prompts)):
+            fail(f"{path}: a request did not emit 1 + n_steps tokens")
+        if not all(0 <= t < v for s in streams for t in s):
+            fail(f"{path}: a token id outside the vocabulary")
+        profile_path(path, engine, arch,
+                     min(64, serve_kw.get("prefill_bucket_max", 64)))
+        if not keep_engine:
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+            engine = None
+        reset_counts()
+        oracle, o_prefill_ms, o_decode_ms, o_peak = run_engine(
+            arch, params, prompts, n_steps, serve_kw, "ref")
+        if grmac_matmul_cuda.launches != 0:
+            fail(f"{path}: the ref run launched the kernel")
+        same = [list(t) for t in oracle.tokens] == streams
+        emit({"phase": f"{path}_oracle", "streams_equal": same,
+              "prefill_ms": o_prefill_ms,
+              "decode_ms_median": float(np.median(o_decode_ms)),
+              "peak_mem_bytes": o_peak, "card": card})
+        if not same:
+            fail(f"{path}: token streams differ from the plain version's "
+                 "on the card")
+        del oracle
+        gc.collect()
+        torch.cuda.empty_cache()
+        return engine
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            engine.step()
-        torch.cuda.synchronize()
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    events = prof.key_averages()
+    def small_cpu_vs_card(path, name):
+        """The model's reduced config (its own CIM setting) on the CPU and
+        on the card: a bucketed prefill with a frozen lane, then a decode
+        step past the cache's end. Greedy ids equal at the valid
+        positions; logits within 1e-5 + 1e-5 |logit| (the devices sum
+        norms, softmax and attention in different orders), 5e-5 + 1e-5
+        |logit| for recurrentgemma (``SMALL_ATOL``)."""
+        small = get_config(name).reduced()
+        rng = np.random.default_rng(SEED)
+        toks = torch.tensor(rng.integers(0, small.vocab_size, (4, 16)))
+        tok = torch.tensor(rng.integers(0, small.vocab_size, (4, 1)))
+        idx, lens = torch.tensor([0, 3, 0, 5]), torch.tensor([16, 7, 0, 12])
+        at = torch.tensor([16, 10, 63, 64])
+        out = {}
+        for d in ("cpu", dev):
+            p = init_params(small, SEED, device=d)
+            c = init_cache(small, 4, 64, torch.float32, d)
+            last, ids, c = prefill_step(p, toks.to(d), small, c, idx.to(d),
+                                        lens.to(d))
+            logits, c = decode_step(p, tok.to(d), small, c, at.to(d))
+            out[d] = [t.cpu() for t in (last, ids, logits)]
+        cpu, card_ = out["cpu"], out[dev]
+        diff = max(float((a - b).abs().max()) for a, b in
+                   ((cpu[0], card_[0]), (cpu[2], card_[2])))
+        atol = SMALL_ATOL.get(name, TOL)
+        within = all(bool(torch.all((a - b).abs() <= atol + TOL * a.abs()))
+                     for a, b in ((cpu[0], card_[0]), (cpu[2], card_[2])))
+        valid = torch.arange(16)[None, :] < lens[:, None]
+        ids_equal = bool(torch.equal(cpu[1][valid], card_[1][valid])
+                         and torch.equal(cpu[2].argmax(-1),
+                                         card_[2].argmax(-1)))
+        emit({"phase": f"{path}_cpu_vs_card", "arch": small.name,
+              "cim_mode": small.cim.mode, "max_abs_diff": diff,
+              "atol": atol, "rtol": TOL, "within_tol": within,
+              "ids_equal": ids_equal})
+        if not within or not ids_equal:
+            fail(f"{path}: the card disagrees with the CPU on the reduced "
+                 f"config (max |diff| {diff}, ids equal {ids_equal})")
 
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
+    rng = np.random.default_rng(SEED)
 
-    # device-side entries only: an operator's own row repeats its kernels
-    kernels = [e for e in events
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(dev_us(e) for e in kernels)
-    launch_calls = sum(e.count for e in events
-                       if e.key.startswith(("cudaLaunchKernel",
-                                            "cuLaunchKernel")))
-    top_dev = sorted(kernels, key=dev_us, reverse=True)[:12]
-    top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
-                     reverse=True)[:12]
-    emit({"phase": "profile", "decode_steps": 3, "wall_us": wall_us,
-          "device_busy_us": busy_us,
-          "device_idle_share": (1 - busy_us / wall_us) if busy_us else None,
-          "cuda_launches_per_step": launch_calls / 3,
-          "device_ops_per_step": sum(e.count for e in kernels) / 3,
-          "top_device": [(e.key, e.count, dev_us(e)) for e in top_dev],
-          "top_cpu_self": [(e.key, e.count, e.self_cpu_time_total)
-                           for e in top_cpu],
-          "card": card})
+    def prompts_of(arch, lens):
+        return [[int(t) for t in rng.integers(0, arch.vocab_size, n)]
+                for n in lens]
 
-    # ------------------------------------------------------------- oracle
-    grmac_matmul_cuda.launches = 0
-    oracle, o_prefill_ms, o_decode_ms, o_peak = serve("ref")
-    if grmac_matmul_cuda.launches != 0:
-        fail("the ref run launched the kernel")
-    same = [list(t) for t in oracle.tokens] == streams
+    # paper-cim-120m, the first slice's path, as before
+    params = init_params(paper, SEED, device=dev)
+    prompts = prompts_of(paper, (5, 8, 12, 17, 24, 33, 40, 60))
+    engine = serve_path("serve", paper, params, prompts, 32,
+                        dict(max_ctx=512), keep_engine=True)
     toks = torch.tensor([p[:5] for p in prompts], device=dev)
-    logits_k, _, _ = forward(params, toks, arch)
-    logits_r, _, _ = forward(params, toks, arch.replace(
-        cim=arch.cim.with_backend("ref")))
-    logits_p, _, _ = forward(engine.params, toks, arch)   # packed weights
+    logits_k, _, _ = forward(params, toks, paper)
+    logits_r, _, _ = forward(params, toks, paper.replace(
+        cim=paper.cim.with_backend("ref")))
+    logits_p, _, _ = forward(engine.params, toks, paper)   # packed weights
     finite = bool(torch.isfinite(logits_k).all())
     logits_equal = bool(torch.equal(logits_k, logits_r)
                         and torch.equal(logits_p, logits_r))
     # the same small model on the CPU (plain version) and on the card
     # (kernel): equal greedy ids, logits within 1e-5 (the devices' torch
     # kernels sum norms, softmax and attention in different orders)
-    small = arch.reduced()
+    small = paper.reduced()
     sp_cpu = init_params(small, SEED, device="cpu")
     sp_dev = init_params(small, SEED, device=dev)
     stoks = torch.tensor(rng.integers(0, small.vocab_size, (4, 24)))
@@ -464,23 +651,72 @@ def main() -> int:
     small_diff = float((small_cpu - small_dev).abs().max())
     small_ids_equal = bool(torch.equal(small_cpu.argmax(-1),
                                        small_dev.argmax(-1)))
-    emit({"phase": "oracle", "streams_equal": same,
-          "prefill_ms": o_prefill_ms,
-          "decode_ms_median": float(np.median(o_decode_ms)),
-          "peak_mem_bytes": o_peak,
+    emit({"phase": "serve_forward_checks",
           "forward_logits_shape": list(logits_k.shape),
           "forward_logits_finite": finite,
           "forward_logits_equal": logits_equal,
           "small_cpu_vs_card_max_abs_diff": small_diff,
           "small_cpu_vs_card_ids_equal": small_ids_equal})
-    if not same:
-        fail("token streams differ from the plain version's on the card")
-    if not finite or tuple(logits_k.shape) != (8, 5, v) or not logits_equal:
+    if not finite or tuple(logits_k.shape) != (8, 5, paper.vocab_size) \
+            or not logits_equal:
         fail("forward logits are not finite, of shape (8, 5, V) and equal "
              "to the plain version's")
     if small_diff > TOL or not small_ids_equal:
         fail(f"the card disagrees with the CPU on a small input "
              f"(max |diff| {small_diff}, ids equal {small_ids_equal})")
+    del engine, params, logits_k, logits_r, logits_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds("serve")
+
+    def with_grmac(arch):
+        # the default design: row, FP6_E3M2 x FP4_E2M1, n_r 32, ENOB 8
+        return arch.replace(cim=arch.cim.with_mode("grmac"))
+
+    def head_temporary(arch, bucket):
+        """The plain version's largest temporary, (K / n_r, M, N) f32 for
+        the LM head at M = slots x bucket."""
+        k_blocks = math.ceil(arch.d_model / 32)
+        return {"prefill_bucket_max": bucket, "head_m": SLOTS * bucket,
+                "oracle_head_temporary_bytes":
+                    4 * k_blocks * SLOTS * bucket * arch.padded_vocab}
+
+    families = (
+        # gemma3-1b: one prompt wraps its 512-slot rings inside a chunked
+        # prefill, another first in decode
+        ("serve_gemma3", "gemma3-1b", (5, 12, 33, 60, 100, 200, 505, 600),
+         16, dict(max_ctx=1024, prefill_bucket_max=16), None),
+        # mamba2-1.3b: short prompts, the recurrence loops over each chunk
+        ("serve_mamba2", "mamba2-1.3b", (3, 5, 8, 12, 17, 24, 33, 40), 16,
+         dict(max_ctx=512, prefill_bucket_max=32), None),
+        # recurrentgemma-9b, one super-block: the plain version's head
+        # temporaries (128 x M x 256 000 f32) already fill most of the
+        # card beside 3 layers, and every layer is drawn on the host
+        ("serve_recurrentgemma", "recurrentgemma-9b",
+         (5, 8, 12, 17, 24, 33, 40, 60), 16,
+         dict(max_ctx=512, prefill_bucket_max=8),
+         {"reduced": {"n_layers": [38, 3]}}),
+    )
+    for path, name, lens, n_steps, serve_kw, extra in families:
+        arch = with_grmac(archs[name])
+        info_kw = dict(head_temporary(arch, serve_kw["prefill_bucket_max"]),
+                       **(extra or {}))
+        t0 = time.perf_counter()
+        params = init_params(arch, SEED, device=dev)
+        leaves = list(_leaves(params))
+        emit({"phase": f"{path}_setup", "arch": arch.name,
+              "n_layers": arch.n_layers, "d_model": arch.d_model,
+              "dtype": arch.dtype,
+              "params": sum(t.numel() for t in leaves),
+              "bytes": sum(t.numel() * t.element_size() for t in leaves),
+              "init_seconds": time.perf_counter() - t0, **info_kw})
+        serve_path(path, arch, params, prompts_of(arch, lens), n_steps,
+                   serve_kw, extra=info_kw)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        small_cpu_vs_card(path, name)
+        seconds(path)
 
     dec = totals["decode"]
     emit({"kernels": [{
@@ -490,14 +726,16 @@ def main() -> int:
         "replaces": "src/repro/kernels/grmac_matmul.py:169",
         "tpu_source": "src/repro/kernels/grmac_matmul.py:169",
         "port_source": "src/repro_torch/csrc/grmac_matmul.cu",
-        "launches": launches,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
         "max_abs_err": max_abs_err,
         "checked_vs_plain": True,
-        "launches_by_design": by_design,
-        # times of the 85 row launches of one decode forward (M = 8), the
-        # weights packed in 4 bits; the bound at their stored bits. "ms" is
-        # device time by CUDA-graph replay; "eager_loop_ms" the same
-        # launches timed as an eager loop (also the host's cost per call)
+        "launches_by_design": by_design_total,
+        # times of the 85 row launches of one paper-cim-120m decode forward
+        # (M = 8), the weights packed in 4 bits; the bound at their stored
+        # bits. "ms" is device time by CUDA-graph replay; "eager_loop_ms"
+        # the same launches timed as an eager loop (also the host's cost
+        # per call)
         "ms": dec["ms"],
         "eager_loop_ms": dec["eager_loop_ms"],
         "plain_ms": dec["plain_ms"],
@@ -508,12 +746,26 @@ def main() -> int:
         "prefill_forward": totals["prefill"],
         "m64_forward_by_design": {d: totals[f"m64_{d}"]["ms"]
                                   for d in ("decode", "prefill")},
+        "gemma3_decode_forward": totals["gemma3_decode"],
+        "gemma3_prefill_forward": totals["gemma3_prefill"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
+
+
+def _leaves(tree):
+    """The tensors of a nested dict of parameters."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
 
 
 if __name__ == "__main__":

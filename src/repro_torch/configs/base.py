@@ -7,8 +7,9 @@ package); a test holds the two field by field. A model is a stack of
     "local"  sliding-window causal self-attention
     "rglru"  RG-LRU recurrent block
     "ssm"    Mamba2 SSD block
-The port runs "attn" blocks with dense FFNs so far; the others raise
-``NotImplementedError`` in the model.
+Each block but "ssm" is followed by a dense FFN. The port serves every
+block kind; MoE FFNs and embedding inputs raise ``NotImplementedError``
+in the model.
 """
 from __future__ import annotations
 
@@ -182,4 +183,9 @@ def list_configs() -> list:
 def _load_all():
     # Importing the modules triggers register() calls. Only the configs
     # whose block kinds the port runs are here.
-    from repro_torch.configs import paper_cim  # noqa: F401
+    from repro_torch.configs import (  # noqa: F401
+        gemma3_1b,
+        mamba2_1p3b,
+        paper_cim,
+        recurrentgemma_9b,
+    )

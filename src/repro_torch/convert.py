@@ -28,13 +28,17 @@ def params_from_jax(tree: dict, arch: ArchConfig,
                     device: Optional[Union[str, torch.device]] = None) -> dict:
     """The port's params from the reference's tree of numpy arrays.
 
-    The reference stacks each super-block's layers along a leading
-    ``n_super`` axis (``superblocks/b{j}_{kind}/...``) and keeps the
-    remainder under ``tail/t{i}_{kind}``; the port keeps one entry per
-    layer, in the order the reference's forward runs them. Arrays are
-    copied onto ``device`` (None means the card).
+    The reference stacks each super-block of ``len(block_pattern)`` layers
+    along a leading ``n_super`` axis (``superblocks/b{j}_{kind}/...``) and
+    keeps the remainder under ``tail/t{i}_{kind}``; the port keeps one
+    entry per layer, in the order the reference's forward runs them
+    (``arch.blocks()``), with each block kind's own subtree. Arrays are
+    copied onto ``device`` (None means the card). MoE FFNs are not ported
+    and raise.
     """
     device = resolve_device(device)
+    if arch.is_moe:
+        raise NotImplementedError("MoE FFNs are not ported yet")
     pat = arch.block_pattern
     n_super, n_tail = divmod(arch.n_layers, arch.pattern_period())
     layers = []
@@ -44,9 +48,6 @@ def params_from_jax(tree: dict, arch: ArchConfig,
                                     tree["superblocks"][f"b{j}_{kind}"]))
     for i in range(n_tail):
         layers.append(tree["tail"][f"t{i}_{pat[i]}"])
-    if any(kind != "attn" for kind in arch.blocks()) or arch.is_moe:
-        raise NotImplementedError(
-            "only global-attention blocks with dense FFNs are ported")
 
     def to_torch(a):
         return torch.tensor(np.asarray(a), device=device)

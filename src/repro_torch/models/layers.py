@@ -1,12 +1,14 @@
-"""Transformer layers of the port: RMSNorm, rotary embeddings, global GQA
-attention (train, single-token decode and chunked-prefill paths) and MLPs.
+"""Transformer layers of the port: RMSNorm, rotary embeddings, GQA
+attention, full and sliding-window (train, single-token decode and
+chunked-prefill paths), and MLPs.
 
 Every projection goes through ``kernels.ops.cim_matmul`` with a site label,
 so the GR-CIM numerics apply per site as in ``repro.models.layers``.
 Layouts stay the reference's: (B, S, H, Dh) for q/k/v and
-(B, S_ctx, KV, Dh) for the KV cache. Cached paths update the cache tensors
-in place (the reference returns a new cache) and return the same dict.
-Sliding-window ("local") attention is not ported yet.
+(B, S_ctx, KV, Dh) for the KV cache; a sliding-window ("local") layer's
+cache is a ring of ``min(window, ctx)`` slots, token ``p`` at slot
+``p mod S_ctx``. Cached paths update the cache tensors in place (the
+reference returns a new cache) and return the same dict.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ from repro_torch.core.cim_config import CIMConfig
 from repro_torch.kernels.ops import cim_matmul
 from repro_torch.kernels.packed import PackedWeight
 
-__all__ = ["dense", "rmsnorm", "rope", "attention", "mlp"]
+__all__ = ["dense", "rmsnorm", "rope", "silu", "attention", "mlp"]
 
 _NEG_INF = -1e30
 
@@ -44,6 +46,12 @@ def rmsnorm(p, x, eps: float = 1e-6):
     return ((x32 / rms) * p["g"].to(torch.float32)).to(x.dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * sigmoid(x)``, the reference's formula (``F.silu`` divides by
+    ``1 + exp(-x)`` instead and rounds differently)."""
+    return x * torch.sigmoid(x)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary position embedding. x: (B, S, H, Dh); positions: (B, S)."""
     half = x.shape[-1] // 2
@@ -59,12 +67,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
 
 
 # ------------------------------------------------------------------ attention
-def _attn_mask(q_pos, k_pos):
-    """(.., S_q, S_k) boolean causal mask from positions."""
-    return q_pos[..., :, None] >= k_pos[..., None, :]
+def _attn_mask(q_pos, k_pos, window: int, local: bool):
+    """(.., S_q, S_k) boolean mask from positions: causal, and banded to
+    ``window`` keys for a local layer."""
+    mask = q_pos[..., :, None] >= k_pos[..., None, :]
+    if local:
+        mask &= q_pos[..., :, None] - k_pos[..., None, :] < window
+    return mask
 
 
-def _attend_chunked(q, kk, vv, pos_q, pos_k, cfg: ArchConfig):
+def _attend_chunked(q, kk, vv, pos_q, pos_k, cfg: ArchConfig, local: bool):
     """Query-chunked masked attention against full keys.
 
     q: (B, Sq, H, Dh); kk/vv: (B, Sk, KV, Dh); positions give causality.
@@ -79,7 +91,7 @@ def _attend_chunked(q, kk, vv, pos_q, pos_k, cfg: ArchConfig):
         qg = q_c.reshape(b, c, kv, groups, dh)
         scores = torch.einsum("bskgd,btkd->bkgst", qg, kk).to(torch.float32)
         scores = scores / math.sqrt(dh)
-        mask = _attn_mask(pos_c, pos_k)                        # (B, C, Sk)
+        mask = _attn_mask(pos_c, pos_k, cfg.window, local)     # (B, C, Sk)
         scores = torch.where(mask[:, None, None, :, :], scores, _NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
         o = torch.einsum("bkgst,btkd->bskgd", probs, vv)
@@ -96,15 +108,25 @@ def _attend_chunked(q, kk, vv, pos_q, pos_k, cfg: ArchConfig):
 
 
 def _chunk_prefill_attention(q, k, v, x, cache, cache_index, chunk_lengths,
-                             cfg: ArchConfig):
+                             cfg: ArchConfig, local: bool):
     """Multi-token cached attention for bucketed prefill.
 
-    Writes the chunk's K/V at per-lane offsets ``cache_index + t`` and
-    attends each query causally. Steps with ``t >= chunk_lengths[b]``
-    (right padding, lanes not being prefilled) and steps past the cache's
-    end write nothing, so those lanes' caches pass through unchanged, as
-    the reference's out-of-bounds scatter drops them. The write is one
-    masked select over the cache, so no index count has to reach the host.
+    Writes the chunk's K/V at per-lane offsets ``cache_index + t`` (modulo
+    the ring's length for a local layer) and attends each query causally.
+    Steps with ``t >= chunk_lengths[b]`` (right padding, lanes not being
+    prefilled) and steps past the cache's end write nothing, so those
+    lanes' caches pass through unchanged, as the reference's out-of-bounds
+    scatter drops them. The write is one masked select over the cache
+    (each slot gathers the step that writes it), so no index count has to
+    reach the host.
+
+    A ring slot ``j`` takes the *latest* valid step ``t`` with
+    ``(idx + t) mod S_ctx == j``: only the last ``min(len, S_ctx)`` valid
+    steps write, each to its own slot, as the reference lets them. Queries
+    of a local layer are scored against the *pre-write* ring plus the
+    chunk's own keys, because a chunk longer than the ring overwrites
+    slots its early queries still see; never-written slots carry a
+    position past every query, so the causal mask drops them.
     """
     b, s = q.shape[0], q.shape[1]
     s_ctx = cache["k"].shape[1]
@@ -112,31 +134,55 @@ def _chunk_prefill_attention(q, k, v, x, cache, cache_index, chunk_lengths,
     steps = torch.arange(s, device=dev)
     q_pos = cache_index[:, None] + steps[None, :]                # (B, S)
     slot = torch.arange(s_ctx, device=dev)[None, :]              # (1, S_ctx)
-    t_of_slot = slot - cache_index[:, None]                      # (B, S_ctx)
-    writes = (t_of_slot >= 0) & (t_of_slot < chunk_lengths.clamp(max=s)[:, None])
+    lengths = chunk_lengths.clamp(max=s)
+    if local:
+        last = lengths - 1
+        t_of_slot = last[:, None] - torch.remainder(
+            (cache_index + last)[:, None] - slot, s_ctx)         # (B, S_ctx)
+        writes = (t_of_slot >= 0) & (t_of_slot
+                                     >= (chunk_lengths - s_ctx)[:, None])
+        # positions the ring holds before the chunk (last write idx - 1)
+        last_old = cache_index - 1
+        age = torch.remainder(
+            torch.remainder(last_old, s_ctx)[:, None] - slot, s_ctx)
+        k_pos_old = last_old[:, None] - age
+        k_pos_old = torch.where(k_pos_old >= 0, k_pos_old, q_pos[:, -1:] + 1)
+        keys = torch.cat([cache["k"], k.to(cache["k"].dtype)], 1).to(x.dtype)
+        vals = torch.cat([cache["v"], v.to(cache["v"].dtype)], 1).to(x.dtype)
+        pos_k = torch.cat([k_pos_old, q_pos], dim=1)
+    else:
+        t_of_slot = slot - cache_index[:, None]                  # (B, S_ctx)
+        writes = (t_of_slot >= 0) & (t_of_slot < lengths[:, None])
     src = t_of_slot.clamp(0, s - 1)[:, :, None, None]
     for name, new in (("k", k), ("v", v)):
         c = cache[name]
         upd = torch.gather(new.to(c.dtype), 1, src.expand(-1, -1, *c.shape[2:]))
         torch.where(writes[:, :, None, None], upd, c, out=c)
-    pos_k = slot.expand(b, s_ctx)
-    out = _attend_chunked(q, cache["k"].to(x.dtype), cache["v"].to(x.dtype),
-                          q_pos, pos_k, cfg)
+    if not local:
+        # linear slots' positions are their indices: slots above a query's
+        # position (later steps, dropped padding, stale tail) are masked
+        keys, vals = cache["k"].to(x.dtype), cache["v"].to(x.dtype)
+        pos_k = slot.expand(b, s_ctx)
+    out = _attend_chunked(q, keys, vals, q_pos, pos_k, cfg, local)
     return out, cache
 
 
-def _decode_attention(q, k, v, x, cache, cache_index, active, cfg: ArchConfig):
-    """Single-token decode: write the token's K/V at ``cache_index`` (clamped
-    to the last slot, as the reference's ``dynamic_update_slice`` clamps its
-    start), attend over the valid prefix. Lanes where ``active`` is False
-    compute exactly as the others and get their written row restored
-    afterwards, which is what the reference engine's per-lane cache merge
-    leaves them."""
+def _decode_attention(q, k, v, x, cache, cache_index, active,
+                      cfg: ArchConfig, local: bool):
+    """Single-token decode: write the token's K/V at ``cache_index`` (the
+    ring slot ``cache_index mod S_ctx`` for a local layer; clamped to the
+    last slot otherwise, as the reference's ``dynamic_update_slice``
+    clamps its start), attend over the valid keys. Lanes where ``active``
+    is False compute exactly as the others and get their written row
+    restored afterwards, which is what the reference engine's per-lane
+    cache merge leaves them."""
     b = q.shape[0]
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     s_ctx = cache["k"].shape[1]
     lane = torch.arange(b, device=q.device)
-    write_at = cache_index.clamp(max=s_ctx - 1)
+    slot = torch.arange(s_ctx, device=q.device)[None, :]
+    write_at = (torch.remainder(cache_index, s_ctx) if local
+                else cache_index.clamp(max=s_ctx - 1))
     kk, vv = cache["k"], cache["v"]
     if active is not None:
         old_k, old_v = kk[lane, write_at].clone(), vv[lane, write_at].clone()
@@ -145,7 +191,13 @@ def _decode_attention(q, k, v, x, cache, cache_index, active, cfg: ArchConfig):
     qg = q.reshape(b, 1, kv, h // kv, dh)
     scores = torch.einsum("bskgd,btkd->bkgst", qg, kk.to(x.dtype))
     scores = scores.to(torch.float32) / math.sqrt(dh)
-    valid = torch.arange(s_ctx, device=q.device)[None, :] <= cache_index[:, None]
+    if local:
+        k_pos = cache_index[:, None] - torch.remainder(
+            write_at[:, None] - slot, s_ctx)
+        valid = (k_pos >= 0) & (k_pos >= (cache_index
+                                          - cfg.window + 1)[:, None])
+    else:
+        valid = slot <= cache_index[:, None]
     scores = torch.where(valid[:, None, None, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", probs, vv.to(x.dtype))
@@ -168,10 +220,12 @@ def attention(
     chunk_lengths: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,
 ):
-    """GQA attention; returns (out, cache).
+    """GQA attention, full or (``local``) over the last ``cfg.window``
+    positions; returns (out, cache).
 
-    Train path: ``cache is None``, full causal attention over S.
-    Decode path: ``cache`` = {"k", "v": (B, S_ctx, KV, Dh)}, S == 1,
+    Train path: ``cache is None``, causal attention over S.
+    Decode path: ``cache`` = {"k", "v": (B, S_ctx, KV, Dh)} (a ring for a
+    local layer), S == 1,
     ``cache_index`` (B,) is each lane's write position; ``active`` (B,)
     bool, when given, freezes the caches of the other lanes.
     Chunked-prefill path: ``cache`` plus ``chunk_lengths`` (B,) — S prompt
@@ -179,9 +233,6 @@ def attention(
     causally in one pass; steps at ``t >= chunk_lengths`` never reach the
     cache.
     """
-    if local:
-        raise NotImplementedError(
-            "sliding-window (local) attention is not ported yet")
     b, s, _ = x.shape
     h, kv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     cim = cfg.cim
@@ -192,15 +243,15 @@ def attention(
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = _attend_chunked(q, k, v, positions, positions, cfg)
+        out = _attend_chunked(q, k, v, positions, positions, cfg, local)
     elif chunk_lengths is not None:
         out, cache = _chunk_prefill_attention(
-            q, k, v, x, cache, cache_index, chunk_lengths, cfg)
+            q, k, v, x, cache, cache_index, chunk_lengths, cfg, local)
     else:
         if s != 1:
             raise ValueError(f"decode takes one token per lane, got S={s}")
         out, cache = _decode_attention(q, k, v, x, cache, cache_index,
-                                       active, cfg)
+                                       active, cfg, local)
     out = out.reshape(b, s, h * dh)
     return dense(p["wo"], out, cim, "attn_o"), cache
 
@@ -210,7 +261,7 @@ def mlp(p, x, cfg: ArchConfig):
     cim = cfg.cim
     hidden = dense(p["wi"], x, cim, "mlp")
     if cfg.gated_mlp:
-        hidden = F.silu(dense(p["wg"], x, cim, "mlp")) * hidden
+        hidden = silu(dense(p["wg"], x, cim, "mlp")) * hidden
     else:
         hidden = F.gelu(hidden, approximate="tanh")
     return dense(p["wo"], hidden, cim, "mlp")

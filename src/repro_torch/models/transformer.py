@@ -1,18 +1,23 @@
 """Model assembly: embeddings + a stack of blocks + LM head.
 
-The port's counterpart of ``repro.models.transformer`` for global-attention
-blocks with dense FFNs. Parameters are plain nested dicts of tensors with
-one entry per layer (``params["layers"][l]``) where the reference stacks
-super-blocks for ``lax.scan``; ``convert.params_from_jax`` maps one tree
-onto the other. Depth is a Python loop over the layers.
+The port's counterpart of ``repro.models.transformer`` for every block kind
+("attn", "local", "rglru", "ssm") with dense FFNs (an "ssm" block has
+none). Parameters are plain nested dicts of tensors with one entry per
+layer (``params["layers"][l]``) where the reference stacks super-blocks
+for ``lax.scan``; ``convert.params_from_jax`` maps one tree onto the
+other. Depth is a Python loop over the layers.
 
 Three execution paths share the layer code:
-  train            full-sequence, no caches
+  train            full-sequence, no caches (attention blocks only so far:
+                   the RG-LRU and SSM train forms wait for the training
+                   slice)
   chunked prefill  a prompt chunk against per-layer caches, KV written at
-                   per-lane offsets in one pass (``prefill_step``;
-                   right padding masked out)
+                   per-lane offsets in one pass and recurrent states
+                   advanced step by step (``prefill_step``; right padding
+                   masked out)
   decode           a single token against per-layer caches
-Cached paths update the cache tensors in place and return the same dict.
+Cached paths update the cache dicts in place (tensors written in place,
+recurrent states replaced) and return the same dict.
 """
 from __future__ import annotations
 
@@ -27,6 +32,9 @@ from repro_torch.core.formats import IntFormat
 from repro_torch.kernels.ops import cim_matmul
 from repro_torch.kernels.packed import pack_weight
 from repro_torch.models import layers as L
+from repro_torch.models.rglru import (init_lam, init_rglru_state,
+                                      rglru_decode, rglru_prefill)
+from repro_torch.models.ssm import init_ssm_state, ssm_decode, ssm_prefill
 
 __all__ = [
     "init_params",
@@ -43,13 +51,23 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+_KINDS = ("attn", "local", "rglru", "ssm")
+# the CIM site of each projection, by parameter group
+_SITES = {"attn": {"wq": "attn_qkv", "wk": "attn_qkv", "wv": "attn_qkv",
+                   "wo": "attn_o"},
+          "rglru": dict.fromkeys(("in_proj", "gate_r", "gate_i", "out_proj"),
+                                 "rglru"),
+          "ssm": dict.fromkeys(("in_proj", "bc_proj", "dt_proj", "out_proj"),
+                               "ssm"),
+          "ffn": dict.fromkeys(("wi", "wg", "wo"), "mlp")}
+
+
 def _check_blocks(cfg: ArchConfig) -> None:
     if cfg.is_moe:
         raise NotImplementedError("MoE FFNs are not ported yet")
-    other = sorted(set(cfg.blocks()) - {"attn"})
+    other = sorted(set(cfg.blocks()) - set(_KINDS))
     if other:
-        raise NotImplementedError(
-            f"block kinds {other} are not ported yet (only 'attn')")
+        raise ValueError(f"unknown block kinds {other}")
     if cfg.input_mode != "tokens":
         raise NotImplementedError("embedding-input models are not ported yet")
 
@@ -60,8 +78,10 @@ def init_params(cfg: ArchConfig, seed: int,
     """Random weights from a seeded ``torch.Generator``, with the reference's
     shapes and scales: normal(0, 1/sqrt(d_in)) projections, output
     projections scaled by 1/sqrt(2 * n_layers) more, 0.02-scaled
-    embeddings, unit norms. Drawn on the CPU, so a seed gives the same
-    weights on every device; ``device=None`` means the card."""
+    embeddings, 0.1-scaled conv kernels, unit norms, and the reference's
+    fixed RG-LRU ``lam`` and SSM ``A_log`` / ``D`` / ``dt_bias``. Drawn on
+    the CPU, so a seed gives the same weights on every device;
+    ``device=None`` means the card."""
     device = resolve_device(device)
     _check_blocks(cfg)
     gen = torch.Generator().manual_seed(seed)
@@ -83,15 +103,47 @@ def init_params(cfg: ArchConfig, seed: int,
     def norm():
         return {"g": torch.ones((d,), dtype=dt, device=device)}
 
-    def layer():
-        p = {"norm1": norm(),
-             "attn": {
-                 "wq": dense(d, h * dh, bias=cfg.qkv_bias),
-                 "wk": dense(d, kv * dh, bias=cfg.qkv_bias),
-                 "wv": dense(d, kv * dh, bias=cfg.qkv_bias),
-                 "wo": dense(h * dh, d, scale=1.0 / math.sqrt(
-                     h * dh * 2 * cfg.n_layers))},
-             "norm2": norm()}
+    def attn_layer():
+        return {"wq": dense(d, h * dh, bias=cfg.qkv_bias),
+                "wk": dense(d, kv * dh, bias=cfg.qkv_bias),
+                "wv": dense(d, kv * dh, bias=cfg.qkv_bias),
+                "wo": dense(h * dh, d, scale=1.0 / math.sqrt(
+                    h * dh * 2 * cfg.n_layers))}
+
+    def conv(width):
+        return normal((cfg.conv_width, width), 0.1)
+
+    def rglru_layer():
+        w = cfg.rnn_width
+        return {"in_proj": dense(d, w), "gate_r": dense(d, w),
+                "gate_i": dense(d, w), "conv": conv(w),
+                "lam": init_lam(w).to(device),
+                "out_proj": dense(w, d, scale=1.0 / math.sqrt(
+                    w * 2 * cfg.n_layers))}
+
+    def ssm_layer():
+        di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+        f32 = dict(dtype=torch.float32, device=device)
+        a_log = torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32))
+        return {"in_proj": dense(d, 2 * di), "bc_proj": dense(d, 2 * n),
+                "dt_proj": dense(d, nh), "conv": conv(di),
+                "A_log": a_log.to(device),
+                "D": torch.ones((nh,), **f32),
+                "dt_bias": torch.zeros((nh,), **f32),
+                "out_norm": {"g": torch.ones((di,), dtype=dt, device=device)},
+                "out_proj": dense(di, d, scale=1.0 / math.sqrt(
+                    di * 2 * cfg.n_layers))}
+
+    def layer(kind):
+        p = {"norm1": norm()}
+        if kind == "ssm":
+            p["ssm"] = ssm_layer()
+            return p                      # a Mamba2 block has no FFN
+        if kind == "rglru":
+            p["rglru"] = rglru_layer()
+        else:
+            p["attn"] = attn_layer()
+        p["norm2"] = norm()
         ffn = {"wi": dense(d, f),
                "wo": dense(f, d, scale=1.0 / math.sqrt(f * 2 * cfg.n_layers))}
         if cfg.gated_mlp:
@@ -100,7 +152,7 @@ def init_params(cfg: ArchConfig, seed: int,
         return p
 
     params = {"embed": normal((cfg.padded_vocab, d), 0.02),
-              "layers": [layer() for _ in range(cfg.n_layers)],
+              "layers": [layer(kind) for kind in cfg.blocks()],
               "final_norm": norm()}
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(d, cfg.padded_vocab)
@@ -112,9 +164,11 @@ def pack_params(params: dict, cfg: ArchConfig) -> dict:
     (``kernels.packed.pack_weight``) under the design ``cfg.cim.for_site``
     resolves there, so no call re-quantizes it. Sites that do not run
     grmac with an FP input and a weight format of at most 8 bits keep
-    their tensor. A tied head gets its own packed ``embed.T`` as
-    ``"lm_head"``; the embedding table stays for the lookup. The input is
-    not changed; untouched tensors are shared."""
+    their tensor, as do the blocks' other tensors (norms, conv kernels,
+    RG-LRU ``lam``, SSM ``A_log`` / ``D`` / ``dt_bias``). A tied head gets
+    its own packed ``embed.T`` as ``"lm_head"``; the embedding table stays
+    for the lookup. The input is not changed; untouched tensors are
+    shared."""
     dt = _dtype(cfg)
 
     def pack(w, site):
@@ -124,14 +178,13 @@ def pack_params(params: dict, cfg: ArchConfig) -> dict:
             return w
         return pack_weight(w.to(dt), eff.fmt_w, eff.n_r)
 
-    def packed(group, site_of):
-        return {name: dict(d, w=pack(d["w"], site_of(name)))
-                for name, d in group.items()}
+    def packed(group, sites):
+        return {name: (dict(v, w=pack(v["w"], sites[name]))
+                       if name in sites else v)
+                for name, v in group.items()}
 
-    layers = [dict(p, attn=packed(p["attn"], lambda name: "attn_o"
-                                  if name == "wo" else "attn_qkv"),
-                   ffn=packed(p["ffn"], lambda name: "mlp"))
-              for p in params["layers"]]
+    layers = [{name: packed(v, _SITES[name]) if name in _SITES else v
+               for name, v in p.items()} for p in params["layers"]]
     head = params.get("lm_head", {"w": params["embed"].T})
     return dict(params, layers=layers, lm_head=dict(head, w=pack(head["w"],
                                                                   "head")))
@@ -141,26 +194,62 @@ def pack_params(params: dict, cfg: ArchConfig) -> dict:
 def init_cache(cfg: ArchConfig, batch: int, ctx_len: int,
                dtype: torch.dtype = torch.bfloat16,
                device: Optional[Union[str, torch.device]] = None) -> dict:
-    """Per-layer KV caches: ``{"layers": [{"k", "v": (B, S_ctx, KV, Dh)}]}``."""
+    """Per-layer caches, ``{"layers": [...]}``: ``{"k", "v": (B, S, KV,
+    Dh)}`` of ``dtype`` with S = ``ctx_len`` for "attn" and the ring
+    length ``min(window, ctx_len)`` for "local"; f32 recurrent states
+    ``{"h", "conv"}`` for "rglru" and "ssm" (conv windows (B, conv_width
+    - 1, C))."""
     device = resolve_device(device)
     _check_blocks(cfg)
-    shape = (batch, ctx_len, cfg.n_kv_heads, cfg.d_head)
-    return {"layers": [{"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
-                       for _ in range(cfg.n_layers)]}
+
+    def one(kind):
+        if kind == "rglru":
+            return init_rglru_state(cfg, batch, device)
+        if kind == "ssm":
+            return init_ssm_state(cfg, batch, device)
+        s = ctx_len if kind == "attn" else min(cfg.window, ctx_len)
+        shape = (batch, s, cfg.n_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    return {"layers": [one(kind) for kind in cfg.blocks()]}
 
 
 # ------------------------------------------------------------------ forward
-def _apply_layer(p, x, cfg, positions, cache, cache_index, chunk_lengths,
-                 active):
-    """Pre-norm residual attention block + dense FFN; returns (x, cache)."""
+def _recurrent(kind, p, h, cfg, cache, chunk_lengths, active):
+    """An RG-LRU or SSM block's serving path; the new state replaces the
+    old one in ``cache``, except in lanes outside ``active`` (decode),
+    which keep theirs."""
+    prefill, decode = ((rglru_prefill, rglru_decode) if kind == "rglru"
+                       else (ssm_prefill, ssm_decode))
+    if chunk_lengths is not None:
+        out, new = prefill(p, h, cfg, cache, chunk_lengths)
+    else:
+        out, new = decode(p, h, cfg, cache)
+        if active is not None:
+            new = {name: torch.where(
+                active.reshape(-1, *[1] * (t.dim() - 1)), t, cache[name])
+                for name, t in new.items()}
+    cache.update(new)
+    return out
+
+
+def _apply_layer(kind, p, x, cfg, positions, cache, cache_index,
+                 chunk_lengths, active):
+    """Pre-norm residual block of ``kind`` + dense FFN (none after "ssm");
+    returns x."""
     h = L.rmsnorm(p["norm1"], x)
-    out, cache = L.attention(
-        p["attn"], h, cfg, local=False, positions=positions, cache=cache,
-        cache_index=cache_index, chunk_lengths=chunk_lengths, active=active)
+    if kind in ("attn", "local"):
+        out, _ = L.attention(
+            p["attn"], h, cfg, local=(kind == "local"), positions=positions,
+            cache=cache, cache_index=cache_index,
+            chunk_lengths=chunk_lengths, active=active)
+    else:
+        out = _recurrent(kind, p[kind], h, cfg, cache, chunk_lengths, active)
     x = x + out
-    x = x + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], x), cfg)
-    return x, cache
+    if kind != "ssm":
+        x = x + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], x), cfg)
+    return x
 
 
 def _lanes(value, b: int, device) -> torch.Tensor:
@@ -184,9 +273,15 @@ def forward(
     ``inputs``: token ids (B, S). ``cache_index`` (scalar or (B,)) is the
     per-lane write offset of a cached call; ``chunk_lengths`` (B,) turns a
     cached call into a chunked prefill over the whole S axis; ``active``
-    (B,) bool freezes the caches of the other lanes in a decode.
+    (B,) bool freezes the caches of the other lanes in a decode. Without
+    a cache, RG-LRU and SSM blocks raise ``NotImplementedError``.
     """
     _check_blocks(cfg)
+    recurrent = sorted({"rglru", "ssm"} & set(cfg.blocks()))
+    if cache is None and recurrent:
+        raise NotImplementedError(
+            f"the train path (no cache) of {recurrent} blocks is not ported "
+            "yet: it comes with the training slice")
     x = params["embed"][inputs].to(_dtype(cfg))
     b, s = x.shape[:2]
     dev = x.device
@@ -196,10 +291,10 @@ def forward(
         steps = torch.arange(s, device=dev)[None, :]
         positions = (steps.expand(b, s) if cache is None
                      else cache_index[:, None] + steps)
-    for i, p_l in enumerate(params["layers"]):
+    for i, (kind, p_l) in enumerate(zip(cfg.blocks(), params["layers"])):
         c = cache["layers"][i] if cache is not None else None
-        x, _ = _apply_layer(p_l, x, cfg, positions, c, cache_index,
-                            chunk_lengths, active)
+        x = _apply_layer(kind, p_l, x, cfg, positions, c, cache_index,
+                         chunk_lengths, active)
     x = L.rmsnorm(params["final_norm"], x)
     # the LM head is a CIM site in both tied and untied form (served params
     # carry a tied head's packed embed.T as "lm_head")
@@ -226,7 +321,8 @@ def decode_step(params, token, cfg: ArchConfig, cache, cache_index,
     """One decode step: token (B, 1) -> (logits (B, V), cache).
 
     ``cache_index`` is a scalar or per-lane (B,) write position; ``active``
-    (B,) bool, when given, leaves the other lanes' caches unchanged."""
+    (B,) bool, when given, leaves the other lanes' caches (KV rows, rings,
+    recurrent states and conv windows) unchanged."""
     logits, _, cache = forward(params, token, cfg, cache=cache,
                                cache_index=cache_index, active=active)
     return logits[:, -1, :], cache
@@ -240,7 +336,7 @@ def prefill_step(params, tokens, cfg: ArchConfig, cache, cache_index, length):
     ``cache_index`` (scalar or (B,)) is each lane's write offset; ``length``
     (B,) counts the valid leading tokens of this chunk per lane (the S axis
     may be right-padded to a bucket). A lane with ``length == 0`` keeps its
-    cache unchanged.
+    cache unchanged, recurrent states and conv windows included.
     """
     b, s = tokens.shape[0], tokens.shape[1]
     dev = tokens.device

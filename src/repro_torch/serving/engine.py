@@ -17,7 +17,8 @@ token) is the equivalence oracle.
 
 Decode (``step``) runs the whole batch; lanes that are not active compute
 like the others and keep their caches (the reference's per-lane merge,
-done here by restoring the one row a decode writes). The host sees
+done here by restoring the one KV or ring row a decode writes, and the
+whole lane of an RG-LRU or SSM state and conv window). The host sees
 exactly one device→host transfer per step, a ``(batch_slots,)`` int32
 array of ids, and one per first-token selection, all through ``_fetch``.
 
@@ -32,8 +33,12 @@ reference done once, stored as 4-bit or 8-bit format codes), so a
 dispatch re-quantizes no weight. ``cim_backend="ref"`` keeps the raw
 weights and the per-call path: it is the independent oracle.
 
-Not ported yet: sampling (``temperature > 0`` raises), the prefix cache,
-the speculative-decode seams and the energy report.
+It serves every block kind of the port: global and sliding-window
+attention (ring caches of ``min(window, max_ctx)`` slots), RG-LRU and
+Mamba2 SSD blocks (f32 recurrent states, whatever ``cache_dtype`` says).
+
+Not ported yet: MoE models, sampling (``temperature > 0`` raises), the
+prefix cache, the speculative-decode seams and the energy report.
 """
 from __future__ import annotations
 
@@ -265,7 +270,9 @@ class Engine:
         return int(np.sum(~self.active & ~self._prefilling))
 
     def _reset_slot_state(self, slot: int) -> None:
-        """Zero one lane's cache before a freed slot hosts a new request."""
+        """Zero one lane's cache before a freed slot hosts a new request:
+        its KV rows and rings, recurrent states and conv windows (every
+        cache tensor has the lane on its first axis)."""
         for layer in self.cache["layers"]:
             for t in layer.values():
                 t[slot].zero_()

@@ -1,6 +1,8 @@
 """The port's serving engine against the JAX ``Engine`` on
-``paper-cim-120m.reduced()``: greedy token streams, step results and finish
-reasons must be identical for the same prompts and slot placement.
+``paper-cim-120m.reduced()`` and, with every projection through GR-MAC, the
+reduced ``gemma3-1b``, ``recurrentgemma-9b`` and ``mamba2-1.3b``: greedy
+token streams, step results and finish reasons must be identical for the
+same prompts and slot placement.
 
 The CIM pre-scale couples the lanes of a dispatch (one absmax over the
 whole activation), so every scenario replays whole batches through both
@@ -192,3 +194,77 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(params,
         teng.Engine(TARCH, tp, teng.ServeConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         torch_init_params(TARCH, seed=0)
+
+
+# ------------------------------------------------------------ other blocks
+FAMILIES = ["gemma3-1b", "recurrentgemma-9b", "mamba2-1.3b"]
+_FAMILY_PARAMS = {}
+
+
+def _family(name):
+    """A reduced family config in grmac mode, in both packages, with the
+    reference's weights carried over."""
+    if name not in _FAMILY_PARAMS:
+        jarch = jax_get_config(name).reduced()
+        tarch = torch_get_config(name).reduced()
+        jarch = jarch.replace(cim=jarch.cim.with_mode("grmac"))
+        tarch = tarch.replace(cim=tarch.cim.with_mode("grmac"))
+        jp = jax_init_params(jax.random.PRNGKey(0), jarch)
+        tp = params_from_jax(jax.tree.map(np.asarray, jp), tarch, "cpu")
+        _FAMILY_PARAMS[name] = (jarch, tarch, jp, tp)
+    return _FAMILY_PARAMS[name]
+
+
+FAMILY_SCENARIOS = {
+    # a request joining a live batch: prefilled with the other lane frozen
+    "join": (dict(batch_slots=2, max_ctx=64),
+             [("add", _prompt(21, 6), {}), ("step", 3),
+              ("add", _prompt(22, 3), {}), ("step", 5)]),
+    # a 70-token prompt, one chunk (bucket 128) longer than the 64-token
+    # window: the ring wraps inside the prefill, and again in decode
+    "long_chunk": (dict(batch_slots=2, max_ctx=256),
+                   [("add", _prompt(23, 70), {}), ("add", _prompt(24, 5), {}),
+                    ("step", 6)]),
+    # chunks of 8 tokens: chunk boundaries inside the recurrences
+    "multi_chunk": (dict(batch_slots=2, max_ctx=64, prefill_bucket_max=8),
+                    [("add", _prompt(25, 21), {}), ("add", _prompt(26, 11), {}),
+                     ("step", 5)]),
+    # release a live slot and reuse it: its rings, recurrent states and
+    # conv windows are zeroed on the claim
+    "release_reuse": (dict(batch_slots=2, max_ctx=64),
+                      [("add", _prompt(27, 6), {}), ("add", _prompt(28, 8), {}),
+                       ("step", 3), ("release", 0),
+                       ("add", _prompt(29, 5), {}), ("step", 4)]),
+}
+
+
+@pytest.mark.parametrize("scenario", sorted(FAMILY_SCENARIOS))
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_engine_matches_jax(name, scenario):
+    """Whole-batch Engine scenarios on the reduced gemma3, recurrentgemma
+    and mamba2 configs with every projection through GR-MAC: identical
+    streams, step results, finish reasons and lengths."""
+    jarch, tarch, jp, tp = _family(name)
+    cfg, script = FAMILY_SCENARIOS[scenario]
+    want = _run(jeng.Engine(jarch, jp, jeng.ServeConfig(**cfg)), JaxSP, script)
+    got = _run(teng.Engine(tarch, tp, teng.ServeConfig(**cfg), device="cpu"),
+               TorchSP, script)
+    assert got == want
+
+
+@pytest.mark.parametrize("bucket_max", [8, 128])
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_bucketed_prefill_equals_token_prefill_in_the_port(
+        name, bucket_max):
+    """With the CIM path off, a bucketed prefill (chunks of 8, or a
+    70-token prompt in one chunk longer than the 64-token window) gives
+    the token-by-token prefill's greedy streams in every block kind."""
+    _, tarch, _, tp = _family(name)
+    arch = dataclasses.replace(tarch, cim=CIMConfig())
+    script = [("add", _prompt(30, 70), {}), ("add", _prompt(31, 21), {}),
+              ("step", 5)]
+    runs = [_run(teng.Engine(arch, tp, teng.ServeConfig(
+                batch_slots=2, max_ctx=128, prefill_mode=mode,
+                prefill_bucket_max=bucket_max), device="cpu"), TorchSP, script)
+            for mode in ("bucketed", "token")]
+    assert _final(runs[0], "tokens") == _final(runs[1], "tokens")

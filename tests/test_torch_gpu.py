@@ -1,7 +1,8 @@
 """Tests of the port that need the CUDA card: the hand-written GR-MAC kernel
 (each of its designs) against its plain version, prepared weights against
-the per-call path, and the engine's streams through the kernel against the
-plain version's, on the card.
+the per-call path, the engine's streams through the kernel against the
+plain version's on the card (every block kind), and the cached paths on
+the card against the CPU.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. This file imports no JAX, so it also runs on the
@@ -274,3 +275,118 @@ def test_cached_paths_on_the_card_agree_with_the_cpu():
         else:
             assert torch.equal(a, b)
     assert torch.equal(out["cpu"][2].argmax(-1), out["cuda"][2].argmax(-1))
+
+
+# ------------------------------------------------------------ other blocks
+FAMILIES = ["gemma3-1b", "recurrentgemma-9b", "mamba2-1.3b"]
+
+
+def _per_forward(arch) -> int:
+    """GR-MAC launches of one forward: 4 projections per attention, RG-LRU
+    or SSM block, the FFN's (none after an SSM block), the LM head."""
+    ffn = 3 if arch.gated_mlp else 2
+    return 1 + sum(4 + (0 if kind == "ssm" else ffn)
+                   for kind in arch.blocks())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_engine_streams_through_the_kernel_equal_the_plain_version(
+        name):
+    """Sliding-window, RG-LRU and SSM models with every projection through
+    GR-MAC: the kernel engine's streams equal the plain version's on the
+    card, with one launch per projection of every dispatch; a 70-token
+    prompt wraps the 64-slot rings inside its prefill chunk."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    arch = get_config(name).reduced()
+    arch = arch.replace(cim=arch.cim.with_mode("grmac"))
+    params = init_params(arch, seed=0)
+    streams = []
+    for backend in (None, "ref"):
+        eng = Engine(arch, params, ServeConfig(batch_slots=4, max_ctx=128,
+                                               cim_backend=backend))
+        before = grmac_matmul_cuda.launches
+        for n in (5, 12, 70):
+            eng.add_request(list(range(1, n + 1)))
+        for _ in range(6):
+            eng.step()
+        launches = grmac_matmul_cuda.launches - before
+        dispatches = (eng.stats["prefill_dispatches"]
+                      + eng.stats["decode_steps"])
+        assert launches == (_per_forward(arch) * dispatches
+                            if backend is None else 0)
+        streams.append([list(t) for t in eng.tokens])
+    assert streams[0] == streams[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_cached_paths_on_the_card_agree_with_the_cpu(name):
+    """The reduced config (its own CIM setting: off) on the CPU and on the
+    card: prefill with a frozen lane, then a decode step past the cache's
+    end. Greedy ids equal at the valid positions, logits and every cache
+    within 1e-5 + 1e-5 |value| (the devices sum norms, softmax and
+    attention in different orders). recurrentgemma gets 5e-5 + 1e-5
+    |value|: RG-LRU takes sqrt(1 - a^2) at a = exp(log a) up to 0.999,
+    where one ulp of a moves the factor by 3e-5 of its value, and the
+    devices' exp differ by an ulp (measured on the H100: up to 1.8e-5 on
+    the logits)."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    prefill_step)
+
+    arch = get_config(name).reduced()
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, arch.vocab_size, (4, 16), generator=gen)
+    tok = torch.randint(0, arch.vocab_size, (4, 1), generator=gen)
+    idx, lens = torch.tensor([0, 3, 0, 5]), torch.tensor([16, 7, 0, 12])
+    at = torch.tensor([16, 10, 63, 64])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = init_params(arch, seed=0, device=dev)
+        cache = init_cache(arch, 4, 64, torch.float32, dev)
+        last, ids, cache = prefill_step(params, toks.to(dev), arch, cache,
+                                        idx.to(dev), lens.to(dev))
+        logits, cache = decode_step(params, tok.to(dev), arch, cache,
+                                    at.to(dev))
+        out[dev] = ([last.cpu(), logits.cpu()]
+                    + [t.cpu() for c in cache["layers"] for t in c.values()],
+                    ids.cpu())
+    atol = 5e-5 if name == "recurrentgemma-9b" else 1e-5
+    for a, b in zip(out["cpu"][0], out["cuda"][0]):
+        assert bool(torch.all((a - b).abs() <= atol + 1e-5 * a.abs()))
+    valid = torch.arange(16)[None, :] < lens[:, None]
+    assert torch.equal(out["cpu"][1][valid], out["cuda"][1][valid])
+    assert torch.equal(out["cpu"][0][1].argmax(-1),
+                       out["cuda"][0][1].argmax(-1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("design", DESIGNS)
+def test_each_design_at_the_new_block_shapes(design):
+    """Bitwise at FP6_E3M2 x FP4_E2M1 in row granularity at the shapes the
+    new paths add: mamba2's N = 64 (dt_proj) and 256 (bc_proj), gemma3's
+    K = 1152 and 6912 (the decode design stages 6912 K codes of x), and
+    a 1152 x 262 144 tied head."""
+    _need_card()
+    from repro_torch.core.formats import FP4_E2M1, FP6_E3M2
+    from repro_torch.kernels.dispatch import grmac_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    kw = dict(fmt_x=FP6_E3M2, fmt_w=FP4_E2M1, n_r=32, enob=8.0,
+              granularity="row")
+    for m, k, n in ((8, 2048, 64), (40, 2048, 64), (8, 2048, 256),
+                    (40, 2048, 256), (8, 6912, 1152), (40, 1152, 6912),
+                    (8, 1152, 262144)):
+        x, w = _operands(gen, m, k, n, FP4_E2M1)
+        got = grmac_matmul(x, w, design=design, **kw)
+        torch.cuda.synchronize()
+        want = grmac_matmul(x, w, backend="ref", **kw)
+        assert torch.equal(got, want), (design, m, k, n)
+        del x, w, got, want
