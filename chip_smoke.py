@@ -18,14 +18,19 @@ seconds:
             and 6912, the 262 144-wide tied head), ragged shapes, the n_r
             ladder and other formats (an fmt_x bf16 cannot hold goes
             through the decode design, its only route): bitwise at
-            FP6_E3M2 x FP4_E2M1, within rtol = atol = 1e-5 elsewhere; and
+            FP6_E3M2 x FP4_E2M1, within rtol = atol = 1e-5 elsewhere; the
+            shapes of the MoE and other dense configs (the routers, N = 8
+            and 128 at K = 6144 and 7168; attention and FFNs at K up to
+            22 016; every head, up to 151 936 columns) at M = 8 and 40,
+            each through the design the kernel picks, bitwise; and
             ``cim_matmul`` with prepared (packed) weights against the
-            per-call path, bitwise;
+            per-call path, bitwise, the routers' with f32 weights;
 4. timing   kernel (packed weights, fused pre/post-scale; CUDA-graph
             replay, and an eager loop that also pays the host's cost per
             call) and plain-version times (CUDA events) at the row
             projections of paper-cim-120m (M = 8, 512, and 64 in both
-            designs) and gemma3-1b (M = 8 and 128), beside the least time
+            designs), gemma3-1b (M = 8 and 128) and grok-1-314b (M = 8 and
+            64: attention, router, head), beside the least time
             the card could take with the weights at their stored bits and,
             for comparison, as f32;
 5. serve    one path per model, each from seeded random weights with every
@@ -43,13 +48,31 @@ seconds:
               serve_recurrentgemma  recurrentgemma-9b at full width, depth
                                  cut from 38 layers to one super-block
                                  (rglru, rglru, local; 22);
+              serve_grok         grok-1-314b (MoE, 8 experts top-2) at full
+                                 width, depth cut from 64 layers to the
+                                 deepest that fits beside the plain-version
+                                 oracle (5 launches a layer + 1: attention
+                                 and the router; the experts are digital);
+                                 decode must drop assignments past an
+                                 expert's capacity, and the kernel and the
+                                 plain version must drop the same number;
             then, for each path: a profile of three more decode steps
             (device idle share, CUDA launches per step, top kernels and
             host operators); the same traffic through the plain version
             on the card (``cim_backend="ref"``), whose token streams must
-            be identical; and the model's reduced config on the CPU and on
-            the card, whose logits must agree within 1e-5 (5e-5 for
-            recurrentgemma, whose RG-LRU amplifies an ulp of exp).
+            be identical; and the model's reduced config (drawn on the
+            CPU, moved to the card) on the CPU and on the card, whose
+            logits must agree within 1e-5 (5e-5 for recurrentgemma, whose
+            RG-LRU amplifies an ulp of exp); arctic-480b's reduced config
+            with grok's;
+6. forward_musicgen  musicgen-medium (embedding inputs, GELU MLP) at full
+            width and depth: seeded (8, S, 1536) embeddings through
+            ``prefill_step`` and decode steps, through the kernel and
+            through the plain version: equal ids, finite logits; and its
+            reduced config on the CPU and on the card.
+
+Full-width weights are drawn by a generator on the card (``init_params``
+on the card), so a 10 GB grok layer takes no host time.
 
 Then the ``kernels`` summary line, the card's name and power limit as
 ``nvidia-smi`` prints them, and a last line
@@ -60,6 +83,7 @@ the port's sources.
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -76,6 +100,8 @@ SLOTS = 8
 # ulp apart, part the reduced recurrentgemma's logits by up to 1.8e-5
 # (measured on an H100 against its host's CPU).
 SMALL_ATOL = {"recurrentgemma-9b": 5e-5}
+# memory kept free beside grok's weights and its oracle's head temporaries
+GROK_MARGIN = 4e9
 
 # H100 SXM data sheet (dense): HBM rate, bf16 tensor-core and f32 peaks.
 HBM_BYTES_S = 3.35e12
@@ -199,7 +225,13 @@ def projections(arch) -> list:
                 ("ssm dt_proj", d, arch.ssm_heads, n),
                 ("ssm out_proj", di, d, n)]
     n_ffn = n_att + count["rglru"]
-    if n_ffn:
+    if n_ffn and arch.is_moe:
+        # the router; arctic's dense residual MLP; the experts are digital
+        out += [("moe router", d, arch.n_experts, n_ffn)]
+        if arch.moe_dense_residual:
+            out += [("dense residual wi/wg", d, f, (ffn - 1) * n_ffn),
+                    ("dense residual wo", f, d, n_ffn)]
+    elif n_ffn:
         out += [("mlp wi/wg", d, f, (ffn - 1) * n_ffn),
                 ("mlp wo", f, d, n_ffn)]
     return out + [("lm head", d, arch.padded_vocab, 1)]
@@ -209,7 +241,33 @@ def per_forward(arch) -> int:
     return sum(p[3] for p in projections(arch))
 
 
+def grok_depth(arch) -> int:
+    """The deepest cut of grok-1-314b whose bf16 weights fit on the card
+    beside the plain-version oracle's largest moment, its LM head at M = 64
+    (8 slots x chunks of 8): the head weight three times as f32 (the
+    per-call path's copy, its pre-scaled copy and their quantized grid)
+    and four (K / n_r, M, N) f32 block temporaries; with GROK_MARGIN
+    bytes to spare."""
+    import torch
+
+    d, e, f, v = arch.d_model, arch.n_experts, arch.expert_d_ff, \
+        arch.padded_vocab
+    qd, kvd = arch.n_heads * arch.d_head, arch.n_kv_heads * arch.d_head
+    layer = 2 * (3 * e * d * f + d * (qd + 2 * kvd) + qd * d + 2 * d) \
+        + 4 * d * e
+    fixed = 2 * 2 * v * d + 3 * 4 * d * v + 4 * 4 * (d // 32) * 64 * v
+    free = torch.cuda.mem_get_info()[0]
+    return max(2, min(arch.n_layers,
+                      int((free - GROK_MARGIN - fixed) // layer)))
+
+
 def main() -> int:
+    # The plain-version oracles allocate and free (K / n_r, M, N) block
+    # temporaries of several GB between small ones; expandable segments
+    # keep the allocator's cache from fragmenting around them (grok's
+    # oracle ran out with 11 GiB reserved but unallocated without).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -233,7 +291,9 @@ def main() -> int:
     from repro_torch.kernels.ops import cim_matmul
     from repro_torch.kernels.packed import pack_weight, unpack_weight
     from repro_torch.models import (decode_step, forward, init_cache,
-                                    init_params, prefill_step)
+                                    init_params, pack_params, prefill_step,
+                                    to_device)
+    from repro_torch.models import moe as moe_mod
     from repro_torch.serving import Engine, ServeConfig
 
     dev = torch.device("cuda")
@@ -263,11 +323,16 @@ def main() -> int:
           "allow_tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
           "allow_tf32_cudnn": torch.backends.cudnn.allow_tf32})
     archs = {name: get_config(name) for name in (
-        "paper-cim-120m", "gemma3-1b", "mamba2-1.3b", "recurrentgemma-9b")}
+        "paper-cim-120m", "gemma3-1b", "mamba2-1.3b", "recurrentgemma-9b",
+        "grok-1-314b", "musicgen-medium")}
     archs["recurrentgemma-9b"] = archs["recurrentgemma-9b"].replace(
         n_layers=3)
+    grok_layers = grok_depth(archs["grok-1-314b"])
+    archs["grok-1-314b"] = archs["grok-1-314b"].replace(n_layers=grok_layers)
     for name, want in (("paper-cim-120m", 85), ("gemma3-1b", 183),
-                       ("mamba2-1.3b", 193), ("recurrentgemma-9b", 22)):
+                       ("mamba2-1.3b", 193), ("recurrentgemma-9b", 22),
+                       ("grok-1-314b", 5 * grok_layers + 1),
+                       ("musicgen-medium", 289)):
         if per_forward(archs[name]) != want:
             fail(f"{name} no longer has {want} projections per forward")
 
@@ -309,50 +374,79 @@ def main() -> int:
         cases.append((gran, 512, 768, 768, 32, wide))
     # gemma3's tied head, 262 144 columns, in row granularity
     cases += [("row", m, 1152, 262144, 32, main_fmt) for m in (8, 40)]
+    # the MoE and other dense configs' projections, (K, N), each at M = 8
+    # and 40 through the design the kernel picks (chameleon's K = 22 016 is
+    # past the decode design's staging: the tensor cores at every M)
+    new_shapes = (
+        (6144, 8), (7168, 128),                       # grok's, arctic's router
+        (6144, 6144), (6144, 1024),                   # grok attention
+        (7168, 7168), (7168, 1024), (7168, 4864), (4864, 7168),   # arctic
+        (8192, 8192), (8192, 1024), (8192, 22016), (22016, 8192),  # chameleon
+        (4096, 4096), (4096, 1024), (4096, 14336), (14336, 4096),  # granite
+        (1536, 1536), (1536, 256), (1536, 8960), (8960, 1536),     # qwen2
+        (2560, 2560), (2560, 6912), (6912, 2560),     # stablelm (d_head 80)
+        (1536, 6144), (6144, 1536),                   # musicgen
+        (6144, 131072), (7168, 32000), (8192, 65536),  # heads: grok, arctic,
+        (4096, 49152), (1536, 151936), (2560, 50304),  # chameleon, granite,
+        (1536, 2048))                             # qwen2, stablelm, musicgen
+    cases += [("row", m, k, n, 32, main_fmt, "auto") for k, n in new_shapes
+              for m in (8, 40)]
     max_abs_err = 0.0
     bad = []
-    for gran, m, k, n, n_r, (fx, fw) in cases:
+    for gran, m, k, n, n_r, (fx, fw), *auto in cases:
         x, w = operands(m, k, n, fw)
         kw = dict(fmt_x=fx, fmt_w=fw, n_r=n_r, enob=8.0, granularity=gran)
         want = grmac_matmul(x, w, backend="ref", **kw)
         bitwise = (fx, fw) == main_fmt
-        for design in (("decode",) if (fx, fw) == wide else DESIGNS):
+        designs = ((None,) if auto else ("decode",) if (fx, fw) == wide
+                   else DESIGNS)
+        for design in designs:
+            before = dict(grmac_matmul_cuda.launches_by_design)
             got = grmac_matmul(x, w, design=design, **kw)   # the kernel
             torch.cuda.synchronize()
+            ran = [d for d, c in grmac_matmul_cuda.launches_by_design.items()
+                   if c != before[d]]
             diff = (got - want).abs()
             mism = int((got != want).sum())
             mad = float(diff.max())
             ok = (mism == 0) if bitwise else bool(
                 torch.all(diff <= TOL + TOL * want.abs()))
             max_abs_err = max(max_abs_err, mad)
-            emit({"phase": "parity", "design": design, "granularity": gran,
-                  "m": m, "k": k, "n": n, "n_r": n_r, "fmt_x": fx.name,
-                  "fmt_w": fw.name, "mismatches": mism, "max_abs_diff": mad,
-                  "bitwise_required": bitwise, "ok": ok})
+            emit({"phase": "parity", "design": ran[0] if auto else design,
+                  "design_chosen_by_kernel": bool(auto),
+                  "granularity": gran, "m": m, "k": k, "n": n, "n_r": n_r,
+                  "fmt_x": fx.name, "fmt_w": fw.name, "mismatches": mism,
+                  "max_abs_diff": mad, "bitwise_required": bitwise,
+                  "ok": ok})
             if not ok:
                 bad.append((design, gran, m, k, n, n_r, fx.name, fw.name))
             del got, diff
         del x, w, want
     # cim_matmul with prepared weights against the per-call path (the weight
     # pre-scaled and quantized on every call) and the plain version, at the
-    # main path's projections; the head's weight as a tied model's embed.T
-    for gran in ("row", "conv", "unit"):
+    # main path's projections; the head's weight as a tied model's embed.T;
+    # the MoE routers (row only) with their f32 weights, at decode and
+    # prefill M
+    rows = [(gran, m, k, n) for gran in ("row", "conv", "unit")
+            for m, k, n in ((8, 768, 3072), (8, 3072, 768), (512, 768, 32000))]
+    rows += [("row", m, k, n) for m in (8, 64)
+             for k, n in ((6144, 8), (7168, 128))]
+    for gran, m, k, n in rows:
         cfg = CIMConfig(mode="grmac", granularity=gran)
-        for m, k, n in ((8, 768, 3072), (8, 3072, 768), (512, 768, 32000)):
-            x = torch.randn((m, k), generator=gen, device=dev) * 3
-            w = torch.randn((n, k), generator=gen, device=dev).T * 0.02
-            want = cim_matmul(x, w, cfg, backend="ref")
-            raw = cim_matmul(x, w, cfg)
-            got = cim_matmul(x, pack_weight(w, cfg.fmt_w, cfg.n_r), cfg)
-            torch.cuda.synchronize()
-            mism = int((got != want).sum()) + int((raw != want).sum())
-            emit({"phase": "parity", "cim_matmul": "packed and per-call vs "
-                  "plain", "granularity": gran, "m": m, "k": k, "n": n,
-                  "w_contiguous": w.is_contiguous(), "mismatches": mism,
-                  "ok": mism == 0})
-            if mism:
-                bad.append(("cim_matmul", gran, m, k, n))
-            del x, w, want, raw, got
+        x = torch.randn((m, k), generator=gen, device=dev) * 3
+        w = torch.randn((n, k), generator=gen, device=dev).T * 0.02
+        want = cim_matmul(x, w, cfg, backend="ref")
+        raw = cim_matmul(x, w, cfg)
+        got = cim_matmul(x, pack_weight(w, cfg.fmt_w, cfg.n_r), cfg)
+        torch.cuda.synchronize()
+        mism = int((got != want).sum()) + int((raw != want).sum())
+        emit({"phase": "parity", "cim_matmul": "packed and per-call vs "
+              "plain", "granularity": gran, "m": m, "k": k, "n": n,
+              "w_contiguous": w.is_contiguous(), "mismatches": mism,
+              "ok": mism == 0})
+        if mism:
+            bad.append(("cim_matmul", gran, m, k, n))
+        del x, w, want, raw, got
     if bad:
         fail(f"kernel disagrees with its plain version: {bad}")
     torch.cuda.empty_cache()
@@ -437,7 +531,10 @@ def main() -> int:
             ("m64_prefill", paper, 64, "prefill"),
             # gemma3-1b served: 8 slots, prefill chunks of 16 tokens
             ("gemma3_decode", archs["gemma3-1b"], 8, None),
-            ("gemma3_prefill", archs["gemma3-1b"], 128, None)):
+            ("gemma3_prefill", archs["gemma3-1b"], 128, None),
+            # grok-1-314b served: 8 slots, prefill chunks of 8 tokens
+            ("grok_decode", archs["grok-1-314b"], 8, None),
+            ("grok_prefill", archs["grok-1-314b"], 64, None)):
         totals[key] = time_forward(key, arch, m, design)
     seconds("timing")
 
@@ -517,6 +614,25 @@ def main() -> int:
     launches_by_path = {}
     by_design_total = dict.fromkeys(DESIGNS, 0)
 
+    # MoE assignments dropped past an expert's capacity, counted on the
+    # device (no sync) per kind of dispatch: a decode routes SLOTS tokens
+    drops = {}
+    real_dispatch = moe_mod.dispatch
+
+    def counting_dispatch(xf, expert_idx, valid, e, cap):
+        buf, slot, keep = real_dispatch(xf, expert_idx, valid, e, cap)
+        kind = "decode" if xf.shape[0] == SLOTS else "prefill"
+        lost = (valid.repeat_interleave(expert_idx.shape[-1]) & ~keep).sum()
+        drops[kind] = drops.get(kind, 0) + lost
+        return buf, slot, keep
+
+    moe_mod.dispatch = counting_dispatch
+
+    def take_drops():
+        out = {kind: int(n) for kind, n in drops.items()}
+        drops.clear()
+        return out
+
     def serve_path(path, arch, params, prompts, n_steps, serve_kw,
                    extra=None, keep_engine=False):
         """Serve ``prompts`` and ``n_steps`` greedy steps through the
@@ -526,9 +642,11 @@ def main() -> int:
         v = arch.vocab_size
         fwd = per_forward(arch)
         reset_counts()
+        take_drops()
         engine, prefill_ms, decode_ms, peak = run_engine(
             arch, params, prompts, n_steps, serve_kw, None)
         launches = grmac_matmul_cuda.launches
+        dropped = take_drops()
         by_design = dict(grmac_matmul_cuda.launches_by_design)
         launches_by_path[path] = launches
         for d in DESIGNS:
@@ -547,7 +665,8 @@ def main() -> int:
               "decode_ms_median": float(np.median(decode_ms)),
               "decode_tok_s_median": SLOTS * 1e3 / float(np.median(
                   decode_ms)),
-              "peak_mem_bytes": peak, "card": card})
+              "peak_mem_bytes": peak, "moe_dropped_assignments": dropped,
+              "card": card})
         if launches != fwd * dispatches:
             fail(f"{path}: {launches} kernel launches for {dispatches} "
                  f"dispatches (expected {fwd} each)")
@@ -556,47 +675,64 @@ def main() -> int:
             fail(f"{path}: a request did not emit 1 + n_steps tokens")
         if not all(0 <= t < v for s in streams for t in s):
             fail(f"{path}: a token id outside the vocabulary")
+        if arch.is_moe and not dropped.get("decode"):
+            fail(f"{path}: no decode step overflowed an expert's capacity")
+        # the profile counts the path's own operations, not the drop count
+        moe_mod.dispatch = real_dispatch
         profile_path(path, engine, arch,
                      min(64, serve_kw.get("prefill_bucket_max", 64)))
+        moe_mod.dispatch = counting_dispatch
         if not keep_engine:
             del engine
             gc.collect()
             torch.cuda.empty_cache()
             engine = None
         reset_counts()
+        take_drops()
         oracle, o_prefill_ms, o_decode_ms, o_peak = run_engine(
             arch, params, prompts, n_steps, serve_kw, "ref")
         if grmac_matmul_cuda.launches != 0:
             fail(f"{path}: the ref run launched the kernel")
+        o_dropped = take_drops()
         same = [list(t) for t in oracle.tokens] == streams
         emit({"phase": f"{path}_oracle", "streams_equal": same,
               "prefill_ms": o_prefill_ms,
               "decode_ms_median": float(np.median(o_decode_ms)),
-              "peak_mem_bytes": o_peak, "card": card})
-        if not same:
-            fail(f"{path}: token streams differ from the plain version's "
-                 "on the card")
+              "peak_mem_bytes": o_peak,
+              "moe_dropped_assignments": o_dropped, "card": card})
+        if not same or o_dropped != dropped:
+            fail(f"{path}: token streams or dropped assignments differ from "
+                 "the plain version's on the card")
         del oracle
         gc.collect()
         torch.cuda.empty_cache()
         return engine
 
     def small_cpu_vs_card(path, name):
-        """The model's reduced config (its own CIM setting) on the CPU and
-        on the card: a bucketed prefill with a frozen lane, then a decode
-        step past the cache's end. Greedy ids equal at the valid
-        positions; logits within 1e-5 + 1e-5 |logit| (the devices sum
-        norms, softmax and attention in different orders), 5e-5 + 1e-5
-        |logit| for recurrentgemma (``SMALL_ATOL``)."""
+        """The model's reduced config (its own CIM setting), its weights
+        drawn on the CPU and moved, on the CPU and on the card: a bucketed
+        prefill with a frozen lane, then a decode step past the cache's
+        end (seeded embeddings for an embedding-input model). Greedy ids
+        equal at the valid positions; logits within 1e-5 + 1e-5 |logit|
+        (the devices sum norms, softmax, attention and the MoE experts'
+        products in different orders), 5e-5 + 1e-5 |logit| for
+        recurrentgemma (``SMALL_ATOL``)."""
         small = get_config(name).reduced()
         rng = np.random.default_rng(SEED)
-        toks = torch.tensor(rng.integers(0, small.vocab_size, (4, 16)))
-        tok = torch.tensor(rng.integers(0, small.vocab_size, (4, 1)))
+        if small.input_mode == "tokens":
+            toks = torch.tensor(rng.integers(0, small.vocab_size, (4, 16)))
+            tok = torch.tensor(rng.integers(0, small.vocab_size, (4, 1)))
+        else:
+            toks = torch.tensor(rng.standard_normal(
+                (4, 16, small.d_model), dtype=np.float32))
+            tok = torch.tensor(rng.standard_normal(
+                (4, 1, small.d_model), dtype=np.float32))
         idx, lens = torch.tensor([0, 3, 0, 5]), torch.tensor([16, 7, 0, 12])
         at = torch.tensor([16, 10, 63, 64])
         out = {}
+        p_cpu = init_params(small, SEED, device="cpu")
         for d in ("cpu", dev):
-            p = init_params(small, SEED, device=d)
+            p = to_device(p_cpu, d)
             c = init_cache(small, 4, 64, torch.float32, d)
             last, ids, c = prefill_step(p, toks.to(d), small, c, idx.to(d),
                                         lens.to(d))
@@ -644,7 +780,7 @@ def main() -> int:
     # kernels sum norms, softmax and attention in different orders)
     small = paper.reduced()
     sp_cpu = init_params(small, SEED, device="cpu")
-    sp_dev = init_params(small, SEED, device=dev)
+    sp_dev = to_device(sp_cpu, dev)
     stoks = torch.tensor(rng.integers(0, small.vocab_size, (4, 24)))
     small_cpu = forward(sp_cpu, stoks, small)[0]
     small_dev = forward(sp_dev, stoks.to(dev), small)[0].cpu()
@@ -696,6 +832,11 @@ def main() -> int:
          (5, 8, 12, 17, 24, 33, 40, 60), 16,
          dict(max_ctx=512, prefill_bucket_max=8),
          {"reduced": {"n_layers": [38, 3]}}),
+        # grok-1-314b at full width, depth cut to what fits beside the
+        # oracle (``grok_depth``): ~9.8 GB of bf16 weights a layer
+        ("serve_grok", "grok-1-314b", (5, 8, 12, 17, 24, 33, 40, 60), 16,
+         dict(max_ctx=512, prefill_bucket_max=8),
+         {"reduced": {"n_layers": [64, grok_layers]}}),
     )
     for path, name, lens, n_steps, serve_kw, extra in families:
         arch = with_grmac(archs[name])
@@ -706,7 +847,10 @@ def main() -> int:
         leaves = list(_leaves(params))
         emit({"phase": f"{path}_setup", "arch": arch.name,
               "n_layers": arch.n_layers, "d_model": arch.d_model,
-              "dtype": arch.dtype,
+              "n_heads": arch.n_heads, "n_kv_heads": arch.n_kv_heads,
+              "n_experts": arch.n_experts, "top_k": arch.top_k,
+              "expert_d_ff": arch.expert_d_ff if arch.is_moe else None,
+              "vocab_size": arch.vocab_size, "dtype": arch.dtype,
               "params": sum(t.numel() for t in leaves),
               "bytes": sum(t.numel() * t.element_size() for t in leaves),
               "init_seconds": time.perf_counter() - t0, **info_kw})
@@ -716,7 +860,93 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         small_cpu_vs_card(path, name)
+        if arch.is_moe:
+            small_cpu_vs_card(path, "arctic-480b")   # the dense residual
         seconds(path)
+
+    # ----------------------------------------------------- forward_musicgen
+    # an embedding-input model (the engine serves token models): seeded
+    # frame embeddings through prefill_step and decode_step, through the
+    # kernel (packed weights) and through the plain version
+    arch = with_grmac(archs["musicgen-medium"])
+    t0 = time.perf_counter()
+    params = init_params(arch, SEED, device=dev)
+    leaves = list(_leaves(params))
+    emit({"phase": "forward_musicgen_setup", "arch": arch.name,
+          "n_layers": arch.n_layers, "d_model": arch.d_model,
+          "dtype": arch.dtype, "params": sum(t.numel() for t in leaves),
+          "init_seconds": time.perf_counter() - t0})
+    egen = torch.Generator(device=dev).manual_seed(SEED)
+    n_dec, s_len = 4, 32
+    frames = torch.randn((SLOTS, s_len + n_dec, arch.d_model),
+                         generator=egen, device=dev)
+    lens = torch.tensor([32, 17, 5, 32, 9, 24, 1, 30], device=dev)
+    valid = torch.arange(s_len, device=dev)[None, :] < lens[:, None]
+    runs = {}
+    for backend in (None, "ref"):
+        a = arch if backend is None else arch.replace(
+            cim=arch.cim.with_backend("ref"))
+        p = pack_params(params, a) if backend is None else params
+        cache = init_cache(a, SLOTS, 64, torch.float32, dev)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        last, ids, cache = prefill_step(p, frames[:, :s_len], a, cache, 0,
+                                        lens)
+        torch.cuda.synchronize()
+        prefill_ms = 1e3 * (time.perf_counter() - t0)
+        logits, step_ids, decode_ms = [last], [ids[valid]], []
+        for i in range(n_dec):
+            t0 = time.perf_counter()
+            lg, cache = decode_step(p, frames[:, s_len + i:s_len + i + 1], a,
+                                    cache, lens + i)
+            torch.cuda.synchronize()
+            decode_ms.append(1e3 * (time.perf_counter() - t0))
+            logits.append(lg)
+            step_ids.append(lg.argmax(-1))
+        runs[backend] = dict(
+            launches=grmac_matmul_cuda.launches,
+            by_design=dict(grmac_matmul_cuda.launches_by_design),
+            logits=torch.stack(logits), ids=torch.cat(step_ids),
+            prefill_ms=prefill_ms, decode_ms=decode_ms,
+            peak=torch.cuda.max_memory_allocated())
+        del p, cache
+    k_run, r_run = runs[None], runs["ref"]
+    launches_by_path["forward_musicgen"] = k_run["launches"]
+    for d in DESIGNS:
+        by_design_total[d] += k_run["by_design"][d]
+    fwd = per_forward(arch)
+    ids_equal = bool(torch.equal(k_run["ids"], r_run["ids"]))
+    finite = bool(torch.isfinite(k_run["logits"]).all())
+    emit({"phase": "forward_musicgen", "arch": arch.name,
+          "batch_slots": SLOTS, "prefill_tokens": s_len,
+          "lengths": lens.tolist(), "decode_steps": n_dec,
+          "kernel_launches": k_run["launches"],
+          "kernel_launches_by_design": k_run["by_design"],
+          "launches_per_forward": fwd,
+          "expected_launches": fwd * (1 + n_dec),
+          "ids_equal": ids_equal, "logits_finite": finite,
+          "logits_equal": bool(torch.equal(k_run["logits"],
+                                           r_run["logits"])),
+          "logits_shape": list(k_run["logits"].shape),
+          "prefill_ms": k_run["prefill_ms"], "decode_ms": k_run["decode_ms"],
+          "oracle_prefill_ms": r_run["prefill_ms"],
+          "oracle_decode_ms": r_run["decode_ms"],
+          "peak_mem_bytes": k_run["peak"], "oracle_peak_mem_bytes":
+          r_run["peak"], "card": card})
+    if k_run["launches"] != fwd * (1 + n_dec) or r_run["launches"] != 0:
+        fail(f"forward_musicgen: {k_run['launches']} kernel launches for "
+             f"{1 + n_dec} forwards (expected {fwd} each), "
+             f"{r_run['launches']} in the ref run")
+    if not ids_equal or not finite:
+        fail("forward_musicgen: ids differ from the plain version's or the "
+             "logits are not finite")
+    del params, runs, k_run, r_run, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+    small_cpu_vs_card("forward_musicgen", "musicgen-medium")
+    seconds("forward_musicgen")
 
     dec = totals["decode"]
     emit({"kernels": [{
@@ -748,6 +978,8 @@ def main() -> int:
                                   for d in ("decode", "prefill")},
         "gemma3_decode_forward": totals["gemma3_decode"],
         "gemma3_prefill_forward": totals["gemma3_prefill"],
+        "grok_decode_forward": totals["grok_decode"],
+        "grok_prefill_forward": totals["grok_prefill"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -7,9 +7,9 @@ package); a test holds the two field by field. A model is a stack of
     "local"  sliding-window causal self-attention
     "rglru"  RG-LRU recurrent block
     "ssm"    Mamba2 SSD block
-Each block but "ssm" is followed by a dense FFN. The port serves every
-block kind; MoE FFNs and embedding inputs raise ``NotImplementedError``
-in the model.
+Each block but "ssm" is followed by an FFN (dense MLP, or MoE when
+``n_experts > 0``). The port registers every configuration of the
+reference.
 """
 from __future__ import annotations
 
@@ -181,11 +181,17 @@ def list_configs() -> list:
 
 
 def _load_all():
-    # Importing the modules triggers register() calls. Only the configs
-    # whose block kinds the port runs are here.
+    # Importing the modules triggers register() calls.
     from repro_torch.configs import (  # noqa: F401
+        arctic_480b,
+        chameleon_34b,
         gemma3_1b,
+        granite_8b,
+        grok_1_314b,
         mamba2_1p3b,
+        musicgen_medium,
         paper_cim,
+        qwen2_1p5b,
         recurrentgemma_9b,
+        stablelm_3b,
     )

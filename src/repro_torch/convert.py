@@ -32,13 +32,13 @@ def params_from_jax(tree: dict, arch: ArchConfig,
     along a leading ``n_super`` axis (``superblocks/b{j}_{kind}/...``) and
     keeps the remainder under ``tail/t{i}_{kind}``; the port keeps one
     entry per layer, in the order the reference's forward runs them
-    (``arch.blocks()``), with each block kind's own subtree. Arrays are
-    copied onto ``device`` (None means the card). MoE FFNs are not ported
-    and raise.
+    (``arch.blocks()``), with each block kind's own subtree: an MoE
+    layer's ``moe`` holds the f32 router, the stacked experts (E, D, F) /
+    (E, F, D) and arctic's ``dense_mlp``. An embedding-input model's tree
+    has no ``embed``. Arrays are copied onto ``device`` (None means the
+    card).
     """
     device = resolve_device(device)
-    if arch.is_moe:
-        raise NotImplementedError("MoE FFNs are not ported yet")
     pat = arch.block_pattern
     n_super, n_tail = divmod(arch.n_layers, arch.pattern_period())
     layers = []
@@ -52,9 +52,11 @@ def params_from_jax(tree: dict, arch: ArchConfig,
     def to_torch(a):
         return torch.tensor(np.asarray(a), device=device)
 
-    out = {"embed": to_torch(tree["embed"]),
-           "layers": [_tree_map(to_torch, layer) for layer in layers],
-           "final_norm": _tree_map(to_torch, tree["final_norm"])}
+    out = {}
+    if "embed" in tree:
+        out["embed"] = to_torch(tree["embed"])
+    out["layers"] = [_tree_map(to_torch, layer) for layer in layers]
+    out["final_norm"] = _tree_map(to_torch, tree["final_norm"])
     if "lm_head" in tree:
         out["lm_head"] = _tree_map(to_torch, tree["lm_head"])
     return out

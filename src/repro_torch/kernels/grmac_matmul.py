@@ -14,7 +14,10 @@ the sources and flags, so an edited source is rebuilt.
 raises: there is no fallback to the plain version (``kernels/ref.py``),
 which ``kernels.ops`` and ``kernels.dispatch`` take for CPU tensors. It
 reads x raw, the weight as a ``PackedWeight`` and the absmax of x, and
-applies the pre- and post-scale itself. ``grmac_matmul_cuda.launches``
+applies the pre- and post-scale itself. The kernel indexes in 32 bits, so
+a call whose x or output reaches 2**31 elements is launched in row chunks
+that stay below it (rows are independent, and every chunk reads the one
+absmax: the result is the unchunked one). ``grmac_matmul_cuda.launches``
 counts its launches, ``launches_by_design`` per design.
 """
 from __future__ import annotations
@@ -53,6 +56,7 @@ DESIGNS = ("decode", "prefill")
 # values dot is f32 FMA, so it takes every M for formats bf16 cannot hold.
 DECODE_MAX_M = 32
 DECODE_MAX_K = 16384     # K codes the decode design stages (shared memory)
+_INDEX_LIMIT = 2**31     # the kernel's indices are 32-bit
 _GRANULARITY = {"conv": 0, "row": 1, "unit": 2}
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -190,8 +194,10 @@ def grmac_matmul_cuda(
     is max |x| as a 0-d float32 tensor on the same device (the kernel takes
     sx = max(amax, 1e-12), reads it on the device: no sync). ``w`` holds
     the weight's codes and scale ``sw``. Returns ``grmac(x / sx, w_q) *
-    (sx * sw)``. ``design`` (None: ``choose_design``) forces one of
-    ``DESIGNS``; the tensor-core design refuses formats bf16 cannot hold.
+    (sx * sw)``. ``design`` (None: ``choose_design`` for the whole M)
+    forces one of ``DESIGNS``; the tensor-core design refuses formats bf16
+    cannot hold. Where M*K or M*N reaches 2**31 the rows go in chunks, one
+    launch each; the weight itself must stay below 2**31 codes.
     """
     if not isinstance(w, PackedWeight):
         raise TypeError(f"a PackedWeight expected, got {type(w).__name__}")
@@ -213,7 +219,7 @@ def grmac_matmul_cuda(
     _check_format(w.fmt_w, "fmt_w")
     m, k = x.shape
     n = w.n
-    if max(m * k, w.k_store * n, m * n) >= 2**31 or min(m, k, n) == 0:
+    if w.k_store * n >= _INDEX_LIMIT or min(m, k, n) == 0:
         raise ValueError(f"shape ({m}, {k}) @ ({k}, {n}) out of range")
     design = design or choose_design(m, w, fmt_x)
     if design not in DESIGNS:
@@ -230,23 +236,30 @@ def grmac_matmul_cuda(
     delta, inv_delta = _adc_steps(float(enob))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     fw = w.fmt_w
-    args = (x.data_ptr(), w.codes.data_ptr(), w.lut.data_ptr(),
-            amax.data_ptr(), w.sw.data_ptr(), out.data_ptr(), m, n, k,
-            w.k_store, w.n_r, w.code_bits, _GRANULARITY[granularity],
-            DESIGNS.index(design), fmt_x.n_exp, fmt_x.n_man, fw.n_exp,
-            fw.n_man, delta, inv_delta,
-            torch.cuda.current_stream(x.device).cuda_stream)
-    # the library launches on the current device: make it x's
-    if x.device.index == torch.cuda.current_device():
-        err = _lib.grmac_matmul_packed(*args)
-    else:
-        with torch.cuda.device(x.device):
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    # rows per launch: x's and the output's chunks below 2**31 elements, in
+    # whole 64-row blocks of the tensor-core design
+    lim = (_INDEX_LIMIT - 1) // max(k, n)
+    rows = min(m, lim // 64 * 64 or lim)
+    for r0 in range(0, m, rows):
+        mc = min(rows, m - r0)
+        args = (x.data_ptr() + 4 * r0 * k, w.codes.data_ptr(),
+                w.lut.data_ptr(), amax.data_ptr(), w.sw.data_ptr(),
+                out.data_ptr() + 4 * r0 * n, mc, n, k, w.k_store, w.n_r,
+                w.code_bits, _GRANULARITY[granularity],
+                DESIGNS.index(design), fmt_x.n_exp, fmt_x.n_man, fw.n_exp,
+                fw.n_man, delta, inv_delta, stream)
+        # the library launches on the current device: make it x's
+        if x.device.index == torch.cuda.current_device():
             err = _lib.grmac_matmul_packed(*args)
-    if err != 0:
-        raise RuntimeError(f"grmac_matmul kernel launch failed ({design}): "
-                           f"cudaError {err}")
-    grmac_matmul_cuda.launches += 1
-    grmac_matmul_cuda.launches_by_design[design] += 1
+        else:
+            with torch.cuda.device(x.device):
+                err = _lib.grmac_matmul_packed(*args)
+        if err != 0:
+            raise RuntimeError(f"grmac_matmul kernel launch failed "
+                               f"({design}): cudaError {err}")
+        grmac_matmul_cuda.launches += 1
+        grmac_matmul_cuda.launches_by_design[design] += 1
     return out
 
 

@@ -1,11 +1,13 @@
 """Model assembly: embeddings + a stack of blocks + LM head.
 
 The port's counterpart of ``repro.models.transformer`` for every block kind
-("attn", "local", "rglru", "ssm") with dense FFNs (an "ssm" block has
-none). Parameters are plain nested dicts of tensors with one entry per
-layer (``params["layers"][l]``) where the reference stacks super-blocks
-for ``lax.scan``; ``convert.params_from_jax`` maps one tree onto the
-other. Depth is a Python loop over the layers.
+("attn", "local", "rglru", "ssm") with dense or MoE FFNs (an "ssm" block
+has none), on token ids or, for ``input_mode == "embeddings"``, on
+precomputed (B, S, D) embeddings. Parameters are plain nested dicts of
+tensors with one entry per layer (``params["layers"][l]``) where the
+reference stacks super-blocks for ``lax.scan``;
+``convert.params_from_jax`` maps one tree onto the other. Depth is a
+Python loop over the layers.
 
 Three execution paths share the layer code:
   train            full-sequence, no caches (attention blocks only so far:
@@ -32,6 +34,7 @@ from repro_torch.core.formats import IntFormat
 from repro_torch.kernels.ops import cim_matmul
 from repro_torch.kernels.packed import pack_weight
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe
 from repro_torch.models.rglru import (init_lam, init_rglru_state,
                                       rglru_decode, rglru_prefill)
 from repro_torch.models.ssm import init_ssm_state, ssm_decode, ssm_prefill
@@ -40,6 +43,7 @@ __all__ = [
     "init_params",
     "init_cache",
     "pack_params",
+    "to_device",
     "forward",
     "train_loss",
     "decode_step",
@@ -52,24 +56,27 @@ def _dtype(cfg: ArchConfig) -> torch.dtype:
 
 
 _KINDS = ("attn", "local", "rglru", "ssm")
-# the CIM site of each projection, by parameter group
+# the CIM site of each projection, by parameter group (nested groups by
+# nested dicts); the MoE experts are digital, as in the reference
+_FFN_SITES = dict.fromkeys(("wi", "wg", "wo"), "mlp")
 _SITES = {"attn": {"wq": "attn_qkv", "wk": "attn_qkv", "wv": "attn_qkv",
                    "wo": "attn_o"},
           "rglru": dict.fromkeys(("in_proj", "gate_r", "gate_i", "out_proj"),
                                  "rglru"),
           "ssm": dict.fromkeys(("in_proj", "bc_proj", "dt_proj", "out_proj"),
                                "ssm"),
-          "ffn": dict.fromkeys(("wi", "wg", "wo"), "mlp")}
+          "ffn": _FFN_SITES,
+          "moe": {"router": "moe_router", "dense_mlp": _FFN_SITES}}
+# sites whose input is f32 whatever the model dtype, so their weight is too
+_F32_SITES = ("moe_router",)
 
 
 def _check_blocks(cfg: ArchConfig) -> None:
-    if cfg.is_moe:
-        raise NotImplementedError("MoE FFNs are not ported yet")
     other = sorted(set(cfg.blocks()) - set(_KINDS))
     if other:
         raise ValueError(f"unknown block kinds {other}")
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError("embedding-input models are not ported yet")
+    if cfg.input_mode not in ("tokens", "embeddings"):
+        raise ValueError(f"unknown input_mode {cfg.input_mode!r}")
 
 
 # ------------------------------------------------------------------ init
@@ -78,26 +85,35 @@ def init_params(cfg: ArchConfig, seed: int,
     """Random weights from a seeded ``torch.Generator``, with the reference's
     shapes and scales: normal(0, 1/sqrt(d_in)) projections, output
     projections scaled by 1/sqrt(2 * n_layers) more, 0.02-scaled
-    embeddings, 0.1-scaled conv kernels, unit norms, and the reference's
-    fixed RG-LRU ``lam`` and SSM ``A_log`` / ``D`` / ``dt_bias``. Drawn on
-    the CPU, so a seed gives the same weights on every device;
-    ``device=None`` means the card."""
+    embeddings, 0.1-scaled conv kernels, unit norms, the reference's
+    fixed RG-LRU ``lam`` and SSM ``A_log`` / ``D`` / ``dt_bias``, and the
+    MoE layers of ``models.moe.init_moe`` (an f32 router). An
+    embedding-input model has no embedding table.
+
+    Drawn by a generator on ``device`` itself (``device=None`` means the
+    card), so a full-width model's billions of normals never pass through
+    the host: a seed gives the same weights on every run on one kind of
+    device, but the CPU and the card draw different streams. To hold the
+    card against the CPU, draw on the CPU and move the tree
+    (``to_device``)."""
     device = resolve_device(device)
     _check_blocks(cfg)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=device).manual_seed(seed)
     dt = _dtype(cfg)
     d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                        cfg.d_ff)
 
-    def normal(shape, scale):
-        w = scale * torch.randn(shape, generator=gen, dtype=torch.float32)
-        return w.to(device=device, dtype=dt)
+    def normal(shape, scale, dtype=dt):
+        w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                        device=device).mul_(scale)
+        return w.to(dtype)
 
-    def dense(d_in, d_out, scale=None, bias=False):
+    def dense(d_in, d_out, scale=None, bias=False, dtype=dt):
         p = {"w": normal((d_in, d_out),
-                         1.0 / math.sqrt(d_in) if scale is None else scale)}
+                         1.0 / math.sqrt(d_in) if scale is None else scale,
+                         dtype)}
         if bias:
-            p["b"] = torch.zeros((d_out,), dtype=dt, device=device)
+            p["b"] = torch.zeros((d_out,), dtype=dtype, device=device)
         return p
 
     def norm():
@@ -144,16 +160,24 @@ def init_params(cfg: ArchConfig, seed: int,
         else:
             p["attn"] = attn_layer()
         p["norm2"] = norm()
-        ffn = {"wi": dense(d, f),
-               "wo": dense(f, d, scale=1.0 / math.sqrt(f * 2 * cfg.n_layers))}
-        if cfg.gated_mlp:
-            ffn["wg"] = dense(d, f)
-        p["ffn"] = ffn
+        if cfg.is_moe:
+            p["moe"] = init_moe(cfg, normal, dense, ffn)
+        else:
+            p["ffn"] = ffn()
         return p
 
-    params = {"embed": normal((cfg.padded_vocab, d), 0.02),
-              "layers": [layer(kind) for kind in cfg.blocks()],
-              "final_norm": norm()}
+    def ffn():
+        p = {"wi": dense(d, f),
+             "wo": dense(f, d, scale=1.0 / math.sqrt(f * 2 * cfg.n_layers))}
+        if cfg.gated_mlp:
+            p["wg"] = dense(d, f)
+        return p
+
+    params = {}
+    if cfg.input_mode == "tokens":
+        params["embed"] = normal((cfg.padded_vocab, d), 0.02)
+    params["layers"] = [layer(kind) for kind in cfg.blocks()]
+    params["final_norm"] = norm()
     if not cfg.tie_embeddings:
         params["lm_head"] = dense(d, cfg.padded_vocab)
     return params
@@ -165,8 +189,11 @@ def pack_params(params: dict, cfg: ArchConfig) -> dict:
     resolves there, so no call re-quantizes it. Sites that do not run
     grmac with an FP input and a weight format of at most 8 bits keep
     their tensor, as do the blocks' other tensors (norms, conv kernels,
-    RG-LRU ``lam``, SSM ``A_log`` / ``D`` / ``dt_bias``). A tied head gets
-    its own packed ``embed.T`` as ``"lm_head"``; the embedding table stays
+    RG-LRU ``lam``, SSM ``A_log`` / ``D`` / ``dt_bias``, the digital MoE
+    experts). A weight is packed at the dtype the site computes in: the
+    model's, or f32 for the MoE router (rounding it to the model dtype
+    first would change its scale and every code). A tied head gets its
+    own packed ``embed.T`` as ``"lm_head"``; the embedding table stays
     for the lookup. The input is not changed; untouched tensors are
     shared."""
     dt = _dtype(cfg)
@@ -176,18 +203,33 @@ def pack_params(params: dict, cfg: ArchConfig) -> dict:
         if (eff.mode != "grmac" or isinstance(eff.fmt_x, IntFormat)
                 or eff.fmt_w.bits > 8):
             return w
-        return pack_weight(w.to(dt), eff.fmt_w, eff.n_r)
+        return pack_weight(w.to(torch.float32 if site in _F32_SITES else dt),
+                           eff.fmt_w, eff.n_r)
 
     def packed(group, sites):
-        return {name: (dict(v, w=pack(v["w"], sites[name]))
-                       if name in sites else v)
-                for name, v in group.items()}
+        out = dict(group)
+        for name, site in sites.items():
+            if name not in group:
+                continue
+            out[name] = (packed(group[name], site) if isinstance(site, dict)
+                         else dict(group[name], w=pack(group[name]["w"],
+                                                       site)))
+        return out
 
-    layers = [{name: packed(v, _SITES[name]) if name in _SITES else v
-               for name, v in p.items()} for p in params["layers"]]
-    head = params.get("lm_head", {"w": params["embed"].T})
+    layers = [packed(p, _SITES) for p in params["layers"]]
+    head = (params["lm_head"] if "lm_head" in params
+            else {"w": params["embed"].T})
     return dict(params, layers=layers, lm_head=dict(head, w=pack(head["w"],
                                                                   "head")))
+
+
+def to_device(tree, device: Union[str, torch.device]):
+    """A copy of a nested dict (or list) of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
 
 
 # ------------------------------------------------------------------ caches
@@ -236,8 +278,11 @@ def _recurrent(kind, p, h, cfg, cache, chunk_lengths, active):
 
 def _apply_layer(kind, p, x, cfg, positions, cache, cache_index,
                  chunk_lengths, active):
-    """Pre-norm residual block of ``kind`` + dense FFN (none after "ssm");
-    returns x."""
+    """Pre-norm residual block of ``kind`` + dense or MoE FFN (none after
+    "ssm"); returns (x, the MoE's aux loss or None). In a chunked prefill
+    the MoE routes only each lane's valid steps; in decode every lane
+    routes, inactive ones too, as in the reference (``active`` only
+    freezes caches)."""
     h = L.rmsnorm(p["norm1"], x)
     if kind in ("attn", "local"):
         out, _ = L.attention(
@@ -247,9 +292,16 @@ def _apply_layer(kind, p, x, cfg, positions, cache, cache_index,
     else:
         out = _recurrent(kind, p[kind], h, cfg, cache, chunk_lengths, active)
     x = x + out
-    if kind != "ssm":
-        x = x + L.mlp(p["ffn"], L.rmsnorm(p["norm2"], x), cfg)
-    return x
+    if kind == "ssm":
+        return x, None
+    h = L.rmsnorm(p["norm2"], x)
+    if not cfg.is_moe:
+        return x + L.mlp(p["ffn"], h, cfg), None
+    valid = (None if chunk_lengths is None else
+             torch.arange(x.shape[1], device=x.device)[None, :]
+             < chunk_lengths[:, None])
+    out, aux = moe(p["moe"], h, cfg, valid=valid)
+    return x + out, aux
 
 
 def _lanes(value, b: int, device) -> torch.Tensor:
@@ -268,13 +320,16 @@ def forward(
     chunk_lengths: Optional[torch.Tensor] = None,
     active: Optional[torch.Tensor] = None,
 ):
-    """Returns (logits, aux_loss, cache).
+    """Returns (logits, aux_loss, cache); aux_loss sums the MoE layers'
+    load-balancing losses (0 without MoE).
 
-    ``inputs``: token ids (B, S). ``cache_index`` (scalar or (B,)) is the
-    per-lane write offset of a cached call; ``chunk_lengths`` (B,) turns a
-    cached call into a chunked prefill over the whole S axis; ``active``
-    (B,) bool freezes the caches of the other lanes in a decode. Without
-    a cache, RG-LRU and SSM blocks raise ``NotImplementedError``.
+    ``inputs``: token ids (B, S), or (B, S, D) embeddings when
+    ``cfg.input_mode == "embeddings"``. ``cache_index`` (scalar or (B,))
+    is the per-lane write offset of a cached call; ``chunk_lengths`` (B,)
+    turns a cached call into a chunked prefill over the whole S axis;
+    ``active`` (B,) bool freezes the caches of the other lanes in a
+    decode. Without a cache, RG-LRU and SSM blocks raise
+    ``NotImplementedError``.
     """
     _check_blocks(cfg)
     recurrent = sorted({"rglru", "ssm"} & set(cfg.blocks()))
@@ -282,7 +337,10 @@ def forward(
         raise NotImplementedError(
             f"the train path (no cache) of {recurrent} blocks is not ported "
             "yet: it comes with the training slice")
-    x = params["embed"][inputs].to(_dtype(cfg))
+    if cfg.input_mode == "tokens":
+        x = params["embed"][inputs].to(_dtype(cfg))
+    else:
+        x = inputs.to(_dtype(cfg))
     b, s = x.shape[:2]
     dev = x.device
     if cache is not None:
@@ -291,10 +349,13 @@ def forward(
         steps = torch.arange(s, device=dev)[None, :]
         positions = (steps.expand(b, s) if cache is None
                      else cache_index[:, None] + steps)
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
     for i, (kind, p_l) in enumerate(zip(cfg.blocks(), params["layers"])):
         c = cache["layers"][i] if cache is not None else None
-        x = _apply_layer(kind, p_l, x, cfg, positions, c, cache_index,
-                         chunk_lengths, active)
+        x, aux = _apply_layer(kind, p_l, x, cfg, positions, c, cache_index,
+                              chunk_lengths, active)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x)
     # the LM head is a CIM site in both tied and untied form (served params
     # carry a tied head's packed embed.T as "lm_head")
@@ -308,8 +369,7 @@ def forward(
         pad = torch.arange(logits.shape[-1], device=dev) >= cfg.vocab_size
         logits = torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
                                                device=dev), logits)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
-    return logits, aux, cache
+    return logits, aux_total, cache
 
 
 def train_loss(params, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01):
@@ -318,7 +378,8 @@ def train_loss(params, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01):
 
 def decode_step(params, token, cfg: ArchConfig, cache, cache_index,
                 active: Optional[torch.Tensor] = None):
-    """One decode step: token (B, 1) -> (logits (B, V), cache).
+    """One decode step: token (B, 1), or (B, 1, D) embeddings -> (logits
+    (B, V), cache).
 
     ``cache_index`` is a scalar or per-lane (B,) write position; ``active``
     (B,) bool, when given, leaves the other lanes' caches (KV rows, rings,
@@ -329,9 +390,9 @@ def decode_step(params, token, cfg: ArchConfig, cache, cache_index,
 
 
 def prefill_step(params, tokens, cfg: ArchConfig, cache, cache_index, length):
-    """Chunked prefill: tokens (B, S) -> the logits at each lane's last valid
-    token (B, V), the greedy ids at *every* chunk position (B, S) int32, and
-    the cache.
+    """Chunked prefill: tokens (B, S), or (B, S, D) embeddings -> the logits
+    at each lane's last valid token (B, V), the greedy ids at *every*
+    chunk position (B, S) int32, and the cache.
 
     ``cache_index`` (scalar or (B,)) is each lane's write offset; ``length``
     (B,) counts the valid leading tokens of this chunk per lane (the S axis

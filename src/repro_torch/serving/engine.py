@@ -35,10 +35,16 @@ weights and the per-call path: it is the independent oracle.
 
 It serves every block kind of the port: global and sliding-window
 attention (ring caches of ``min(window, max_ctx)`` slots), RG-LRU and
-Mamba2 SSD blocks (f32 recurrent states, whatever ``cache_dtype`` says).
+Mamba2 SSD blocks (f32 recurrent states, whatever ``cache_dtype`` says),
+with dense or MoE FFNs. An MoE decode routes every lane, the inactive
+ones too (they feed their last token, as the reference's engine does),
+so they take expert capacity there as in the reference. Models on
+embedding inputs are served through ``models.prefill_step`` /
+``decode_step``, not here: the engine refuses them, as the reference's
+does.
 
-Not ported yet: MoE models, sampling (``temperature > 0`` raises), the
-prefix cache, the speculative-decode seams and the energy report.
+Not ported yet: sampling (``temperature > 0`` raises), the prefix cache,
+the speculative-decode seams and the energy report.
 """
 from __future__ import annotations
 

@@ -1,8 +1,9 @@
 """The port's serving engine against the JAX ``Engine`` on
 ``paper-cim-120m.reduced()`` and, with every projection through GR-MAC, the
-reduced ``gemma3-1b``, ``recurrentgemma-9b`` and ``mamba2-1.3b``: greedy
-token streams, step results and finish reasons must be identical for the
-same prompts and slot placement.
+reduced ``gemma3-1b``, ``recurrentgemma-9b``, ``mamba2-1.3b`` and
+``grok-1-314b`` (MoE; the reference's own MoE serving tests use grok):
+greedy token streams, step results and finish reasons must be identical
+for the same prompts and slot placement.
 
 The CIM pre-scale couples the lanes of a dispatch (one absmax over the
 whole activation), so every scenario replays whole batches through both
@@ -197,7 +198,7 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(params,
 
 
 # ------------------------------------------------------------ other blocks
-FAMILIES = ["gemma3-1b", "recurrentgemma-9b", "mamba2-1.3b"]
+FAMILIES = ["gemma3-1b", "recurrentgemma-9b", "mamba2-1.3b", "grok-1-314b"]
 _FAMILY_PARAMS = {}
 
 
@@ -241,9 +242,10 @@ FAMILY_SCENARIOS = {
 @pytest.mark.parametrize("scenario", sorted(FAMILY_SCENARIOS))
 @pytest.mark.parametrize("name", FAMILIES)
 def test_family_engine_matches_jax(name, scenario):
-    """Whole-batch Engine scenarios on the reduced gemma3, recurrentgemma
-    and mamba2 configs with every projection through GR-MAC: identical
-    streams, step results, finish reasons and lengths."""
+    """Whole-batch Engine scenarios on the reduced gemma3, recurrentgemma,
+    mamba2 and grok configs with every projection (grok's router too)
+    through GR-MAC: identical streams, step results, finish reasons and
+    lengths."""
     jarch, tarch, jp, tp = _family(name)
     cfg, script = FAMILY_SCENARIOS[scenario]
     want = _run(jeng.Engine(jarch, jp, jeng.ServeConfig(**cfg)), JaxSP, script)
@@ -258,7 +260,10 @@ def test_family_bucketed_prefill_equals_token_prefill_in_the_port(
         name, bucket_max):
     """With the CIM path off, a bucketed prefill (chunks of 8, or a
     70-token prompt in one chunk longer than the 64-token window) gives
-    the token-by-token prefill's greedy streams in every block kind."""
+    the token-by-token prefill's greedy streams in every block kind. For
+    grok this holds because no expert overflows in either mode: a chunk's
+    padded steps take no capacity, and at most one of each token's two
+    assignments reaches an expert whose capacity is 1.25x the mean."""
     _, tarch, _, tp = _family(name)
     arch = dataclasses.replace(tarch, cim=CIMConfig())
     script = [("add", _prompt(30, 70), {}), ("add", _prompt(31, 21), {}),
@@ -268,3 +273,32 @@ def test_family_bucketed_prefill_equals_token_prefill_in_the_port(
                 prefill_bucket_max=bucket_max), device="cpu"), TorchSP, script)
             for mode in ("bucketed", "token")]
     assert _final(runs[0], "tokens") == _final(runs[1], "tokens")
+
+
+def test_moe_decode_overflow_matches_jax(monkeypatch):
+    """Eight slots of reduced grok, GR-MAC: in decode all 8 lanes route (the
+    freed and idle ones too, on their last token) and 16 assignments share
+    a capacity of 5 an expert, so assignments are dropped. The port drops
+    exactly where the reference does: the streams stay identical."""
+    from repro_torch.models import moe as torch_moe
+
+    jarch, tarch, jp, tp = _family("grok-1-314b")
+    dropped = []
+    real = torch_moe.dispatch
+
+    def counting(xf, expert_idx, valid, e, cap):
+        buf, slot, keep = real(xf, expert_idx, valid, e, cap)
+        if xf.shape[0] == 8:                      # a layer of a decode step
+            dropped.append(int((~keep).sum()))
+        return buf, slot, keep
+
+    monkeypatch.setattr(torch_moe, "dispatch", counting)
+    cfg = dict(batch_slots=8, max_ctx=64)
+    script = ([("add", _prompt(40 + i, 3 + 2 * i), {}) for i in range(6)]
+              + [("step", 4), ("release", 2), ("step", 3)])
+    want = _run(jeng.Engine(jarch, jp, jeng.ServeConfig(**cfg)), JaxSP,
+                script)
+    got = _run(teng.Engine(tarch, tp, teng.ServeConfig(**cfg), device="cpu"),
+               TorchSP, script)
+    assert got == want
+    assert len(dropped) == 7 * tarch.n_layers and sum(dropped) > 0

@@ -143,6 +143,30 @@ def test_paper_cim_config_matches_jax_field_by_field():
     assert torch_get_config("paper-cim-120m").cim.resolved_enob() == 8.0
 
 
+def test_every_reference_config_is_registered():
+    from repro.configs import list_configs as jax_list
+    from repro_torch.configs import list_configs as torch_list
+
+    assert torch_list() == jax_list()
+    assert len(torch_list()) == 11
+
+
+@pytest.mark.parametrize("name", [
+    "arctic-480b", "chameleon-34b", "gemma3-1b", "granite-8b", "grok-1-314b",
+    "mamba2-1.3b", "musicgen-medium", "qwen2-1.5b", "recurrentgemma-9b",
+    "stablelm-3b"])
+def test_config_matches_jax_field_by_field(name):
+    """Each copied config module (``source`` included), its reduced form
+    and its derived sizes."""
+    ja, ta = jax_get_config(name), torch_get_config(name)
+    assert _plain(ta) == _plain(ja)
+    assert _plain(ta.reduced()) == _plain(ja.reduced())
+    for attr in ("padded_vocab", "param_count", "blocks", "expert_d_ff"):
+        got, want = getattr(ta, attr), getattr(ja, attr)
+        assert (got() if callable(got) else got) == \
+            (want() if callable(want) else want)
+
+
 def test_site_resolution_matches_jax():
     jcfg = jcc.CIMConfig(mode="grmac", apply_to=("ffn", "head")) \
         .override_site("head", jcc.SiteDesign(granularity="conv", n_r=64)) \

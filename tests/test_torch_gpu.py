@@ -1,8 +1,10 @@
 """Tests of the port that need the CUDA card: the hand-written GR-MAC kernel
-(each of its designs) against its plain version, prepared weights against
-the per-call path, the engine's streams through the kernel against the
-plain version's on the card (every block kind), and the cached paths on
-the card against the CPU.
+(each of its designs, and its row-chunked launch past 2**31 elements)
+against its plain version, prepared weights against the per-call path,
+the engine's streams through the kernel against the plain version's on
+the card (every block kind, MoE FFNs), and the cached paths on the card
+against the CPU (weights drawn on the CPU and moved: the two devices'
+generators draw different streams).
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. This file imports no JAX, so it also runs on the
@@ -202,9 +204,11 @@ def test_tied_head_runs_through_the_kernel_and_matches_the_cpu():
     arch = get_config("paper-cim-120m").reduced().replace(tie_embeddings=True)
     toks = torch.randint(0, arch.vocab_size, (4, 16),
                          generator=torch.Generator().manual_seed(0))
-    cpu = forward(pack_params(init_params(arch, 0, device="cpu"), arch),
-                  toks, arch)[0]
-    served = pack_params(init_params(arch, 0), arch)
+    from repro_torch.models import to_device
+
+    params = init_params(arch, 0, device="cpu")
+    cpu = forward(pack_params(params, arch), toks, arch)[0]
+    served = pack_params(to_device(params, "cuda"), arch)
     assert served["lm_head"]["w"].codes.is_contiguous()
     before = grmac_matmul_cuda.launches
     card = forward(served, toks.cuda(), arch)[0].cpu()
@@ -250,7 +254,7 @@ def test_cached_paths_on_the_card_agree_with_the_cpu():
     _need_card()
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, init_cache, init_params,
-                                    prefill_step)
+                                    prefill_step, to_device)
 
     arch = get_config("paper-cim-120m").reduced()
     gen = torch.Generator().manual_seed(0)
@@ -260,8 +264,9 @@ def test_cached_paths_on_the_card_agree_with_the_cpu():
     lens = torch.tensor([16, 7, 0, 12])
     at = torch.tensor([16, 10, 63, 64])
     out = {}
+    cpu_params = init_params(arch, seed=0, device="cpu")
     for dev in ("cpu", "cuda"):
-        params = init_params(arch, seed=0, device=dev)
+        params = to_device(cpu_params, dev)
         cache = init_cache(arch, 4, 64, torch.float32, dev)
         last, ids, cache = prefill_step(params, toks.to(dev), arch, cache,
                                         idx.to(dev), lens.to(dev))
@@ -278,14 +283,18 @@ def test_cached_paths_on_the_card_agree_with_the_cpu():
 
 
 # ------------------------------------------------------------ other blocks
-FAMILIES = ["gemma3-1b", "recurrentgemma-9b", "mamba2-1.3b"]
+FAMILIES = ["gemma3-1b", "recurrentgemma-9b", "mamba2-1.3b", "grok-1-314b",
+            "arctic-480b"]
 
 
 def _per_forward(arch) -> int:
     """GR-MAC launches of one forward: 4 projections per attention, RG-LRU
-    or SSM block, the FFN's (none after an SSM block), the LM head."""
+    or SSM block; after every block but SSM the FFN's, or an MoE FFN's
+    router and (arctic) dense residual MLP, its experts being digital; the
+    LM head."""
     ffn = 3 if arch.gated_mlp else 2
-    return 1 + sum(4 + (0 if kind == "ssm" else ffn)
+    moe = 1 + (ffn if arch.moe_dense_residual else 0)
+    return 1 + sum(4 + (0 if kind == "ssm" else moe if arch.is_moe else ffn)
                    for kind in arch.blocks())
 
 
@@ -293,10 +302,12 @@ def _per_forward(arch) -> int:
 @pytest.mark.parametrize("name", FAMILIES)
 def test_family_engine_streams_through_the_kernel_equal_the_plain_version(
         name):
-    """Sliding-window, RG-LRU and SSM models with every projection through
-    GR-MAC: the kernel engine's streams equal the plain version's on the
-    card, with one launch per projection of every dispatch; a 70-token
-    prompt wraps the 64-slot rings inside its prefill chunk."""
+    """Sliding-window, RG-LRU, SSM and MoE models with every projection
+    through GR-MAC: the kernel engine's streams equal the plain version's
+    on the card, with one launch per projection of every dispatch; a
+    70-token prompt wraps the 64-slot rings inside its prefill chunk. The
+    MoE experts' batched matmuls repeat bitwise between the two
+    engines."""
     _need_card()
     from repro_torch.configs import get_config
     from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
@@ -325,31 +336,37 @@ def test_family_engine_streams_through_the_kernel_equal_the_plain_version(
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("name", FAMILIES)
+@pytest.mark.parametrize("name", FAMILIES + ["musicgen-medium"])
 def test_family_cached_paths_on_the_card_agree_with_the_cpu(name):
-    """The reduced config (its own CIM setting: off) on the CPU and on the
-    card: prefill with a frozen lane, then a decode step past the cache's
-    end. Greedy ids equal at the valid positions, logits and every cache
-    within 1e-5 + 1e-5 |value| (the devices sum norms, softmax and
-    attention in different orders). recurrentgemma gets 5e-5 + 1e-5
-    |value|: RG-LRU takes sqrt(1 - a^2) at a = exp(log a) up to 0.999,
-    where one ulp of a moves the factor by 3e-5 of its value, and the
-    devices' exp differ by an ulp (measured on the H100: up to 1.8e-5 on
-    the logits)."""
+    """The reduced config (its own CIM setting: off), its weights drawn on
+    the CPU, on the CPU and on the card: prefill with a frozen lane, then
+    a decode step past the cache's end. Greedy ids equal at the valid
+    positions, logits and every cache within 1e-5 + 1e-5 |value| (the
+    devices sum norms, softmax, attention and the MoE experts' products
+    in different orders). recurrentgemma gets 5e-5 + 1e-5 |value|: RG-LRU
+    takes sqrt(1 - a^2) at a = exp(log a) up to 0.999, where one ulp of a
+    moves the factor by 3e-5 of its value, and the devices' exp differ by
+    an ulp (measured on the H100: up to 1.8e-5 on the logits). musicgen
+    takes seeded embeddings."""
     _need_card()
     from repro_torch.configs import get_config
     from repro_torch.models import (decode_step, init_cache, init_params,
-                                    prefill_step)
+                                    prefill_step, to_device)
 
     arch = get_config(name).reduced()
     gen = torch.Generator().manual_seed(0)
-    toks = torch.randint(0, arch.vocab_size, (4, 16), generator=gen)
-    tok = torch.randint(0, arch.vocab_size, (4, 1), generator=gen)
+    if arch.input_mode == "tokens":
+        toks = torch.randint(0, arch.vocab_size, (4, 16), generator=gen)
+        tok = torch.randint(0, arch.vocab_size, (4, 1), generator=gen)
+    else:
+        toks = torch.randn((4, 16, arch.d_model), generator=gen)
+        tok = torch.randn((4, 1, arch.d_model), generator=gen)
     idx, lens = torch.tensor([0, 3, 0, 5]), torch.tensor([16, 7, 0, 12])
     at = torch.tensor([16, 10, 63, 64])
     out = {}
+    cpu_params = init_params(arch, seed=0, device="cpu")
     for dev in ("cpu", "cuda"):
-        params = init_params(arch, seed=0, device=dev)
+        params = to_device(cpu_params, dev)
         cache = init_cache(arch, 4, 64, torch.float32, dev)
         last, ids, cache = prefill_step(params, toks.to(dev), arch, cache,
                                         idx.to(dev), lens.to(dev))
@@ -390,3 +407,101 @@ def test_each_design_at_the_new_block_shapes(design):
         want = grmac_matmul(x, w, backend="ref", **kw)
         assert torch.equal(got, want), (design, m, k, n)
         del x, w, got, want
+
+
+# the kernel shapes the MoE and dense configs of the fourth slice add, as
+# (K, N): grok's router (6144 x 8) and attention (6144 x 6144, 6144 x
+# 1024), arctic's router (7168 x 128), attention and dense residual (7168,
+# 4864), chameleon's 8192-wide attention and 22 016-deep FFN (past the
+# decode design's staging, so the tensor cores take it at every M),
+# granite's 14 336, qwen2's 8960 and stablelm's d_head 80 (2560 x 2560)
+NEW_SHAPES = ((6144, 8), (7168, 128), (6144, 6144), (6144, 1024),
+              (7168, 7168), (7168, 4864), (4864, 7168), (8192, 8192),
+              (8192, 22016), (22016, 8192), (4096, 14336), (14336, 4096),
+              (1536, 8960), (8960, 1536), (2560, 2560), (2560, 6912),
+              (1536, 6144), (6144, 1536))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [8, 40])
+def test_kernel_at_the_new_config_shapes(m):
+    """Bitwise at FP6_E3M2 x FP4_E2M1 in row granularity at every new
+    projection shape, M = 8 (the decode design where K allows) and 40
+    (the tensor cores)."""
+    _need_card()
+    from repro_torch.core.formats import FP4_E2M1, FP6_E3M2
+    from repro_torch.kernels.dispatch import grmac_matmul
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    kw = dict(fmt_x=FP6_E3M2, fmt_w=FP4_E2M1, n_r=32, enob=8.0,
+              granularity="row")
+    for k, n in NEW_SHAPES:
+        x, w = _operands(gen, m, k, n, FP4_E2M1)
+        got = grmac_matmul(x, w, **kw)
+        torch.cuda.synchronize()
+        want = grmac_matmul(x, w, backend="ref", **kw)
+        assert torch.equal(got, want), (m, k, n)
+        del x, w, got, want
+
+
+@pytest.mark.gpu
+def test_row_chunked_launch_past_the_32_bit_limit():
+    """gemma3-1b's tied head at 8 slots and ``prefill_bucket_max`` 1024: M =
+    8192 rows x N = 262 144 columns is 2**31 output elements, past the
+    kernel's 32-bit indices, so the wrapper launches it in two row chunks
+    (8128 + 64 rows). Rows on both sides of the chunk boundary, and the
+    first and last, equal the plain version's on the same pre-scaled x."""
+    _need_card()
+    from repro_torch.core.formats import FP4_E2M1, FP6_E3M2
+    from repro_torch.kernels.dispatch import grmac_matmul
+    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    m, k, n = 8192, 1152, 262144
+    x, w = _operands(gen, m, k, n, FP4_E2M1)
+    kw = dict(fmt_x=FP6_E3M2, fmt_w=FP4_E2M1, n_r=32, enob=8.0,
+              granularity="row")
+    before = grmac_matmul_cuda.launches
+    got = grmac_matmul(x, w, **kw)
+    torch.cuda.synchronize()
+    assert grmac_matmul_cuda.launches == before + 2
+    rows = torch.tensor([0, 1, 4097, 8126, 8127, 8128, 8129, 8191],
+                        device="cuda")
+    want = grmac_matmul(x[rows], w, backend="ref", **kw)
+    assert torch.equal(got[rows], want)
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.gpu
+def test_embedding_model_through_the_kernel_equals_the_plain_version():
+    """musicgen (embedding inputs, GELU MLP) reduced, every projection
+    through GR-MAC: prefill and two decode steps through the kernel give
+    the plain version's logits bitwise on the card."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
+    from repro_torch.models import (decode_step, init_cache, init_params,
+                                    pack_params, prefill_step)
+
+    arch = get_config("musicgen-medium").reduced()
+    arch = arch.replace(cim=arch.cim.with_mode("grmac"))
+    params = init_params(arch, seed=0)
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    emb = torch.randn((4, 16, arch.d_model), generator=gen, device="cuda")
+    lens = torch.tensor([16, 7, 0, 12], device="cuda")
+    out = []
+    for a, p in ((arch, pack_params(params, arch)),
+                 (arch.replace(cim=arch.cim.with_backend("ref")), params)):
+        before = grmac_matmul_cuda.launches
+        cache = init_cache(a, 4, 64, torch.float32)
+        last, ids, cache = prefill_step(p, emb, a, cache, 0, lens)
+        logits = [last]
+        for i in range(2):
+            lg, cache = decode_step(p, emb[:, i:i + 1], a, cache, lens + i)
+            logits.append(lg)
+        launches = grmac_matmul_cuda.launches - before
+        assert launches == (3 * _per_forward(arch)
+                            if a.cim.backend != "ref" else 0)
+        out.append(torch.stack(logits))
+    assert torch.equal(out[0], out[1])
+    assert bool(torch.isfinite(out[0]).all())

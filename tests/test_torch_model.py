@@ -1,8 +1,11 @@
 """The port's model against the JAX package on ``paper-cim-120m.reduced()``
 (2 layers, d_model 128, vocab 512, f32, every projection through GR-MAC
-row) and on the reduced ``gemma3-1b``, ``recurrentgemma-9b`` and
+row), on the reduced ``gemma3-1b``, ``recurrentgemma-9b`` and
 ``mamba2-1.3b`` (sliding-window attention, RG-LRU and SSM blocks, GR-MAC
-row), with the reference's weights carried over by ``params_from_jax``.
+row) and on the seven other reduced configs (the MoE ``grok-1-314b`` and
+``arctic-480b``, the dense ``granite-8b``, ``qwen2-1.5b``, ``stablelm-3b``
+and ``chameleon-34b``, and ``musicgen-medium`` on embedding inputs), with
+the reference's weights carried over by ``params_from_jax``.
 
 Tolerances and why: greedy ids must be equal. Logits, caches and states
 agree to 1e-5 absolute (measured: 0 on the train path, at most 9.5e-7 on
@@ -34,6 +37,9 @@ from repro_torch.models import forward as torch_forward  # noqa: E402
 from repro_torch.models import init_cache as torch_init_cache  # noqa: E402
 from repro_torch.models import init_params as torch_init_params  # noqa: E402
 from repro_torch.models import prefill_step as torch_prefill  # noqa: E402
+from repro_torch.models import pack_params as torch_pack_params  # noqa: E402
+from repro_torch.models import train_loss as torch_train_loss  # noqa: E402
+from repro_torch.kernels.packed import PackedWeight  # noqa: E402
 
 ATOL = 1e-5
 JARCH = jax_get_config("paper-cim-120m").reduced()
@@ -152,21 +158,24 @@ def test_decode_active_mask_freezes_lanes(params):
 
 
 def test_unported_block_kinds_raise():
-    """What stays unported raises: MoE FFNs, embedding inputs, and the
-    train path (no cache) of RG-LRU and SSM blocks."""
-    with pytest.raises(NotImplementedError, match="MoE"):
-        torch_init_cache(TARCH.replace(n_experts=4), 1, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        torch_init_params(TARCH.replace(n_experts=4), 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="embedding"):
-        torch_init_params(TARCH.replace(input_mode="embeddings"), 0,
-                          device="cpu")
+    """What stays unported raises: the train path (no cache) of RG-LRU and
+    SSM blocks and ``train_loss`` (the training slice); the engine refuses
+    embedding-input models, as the reference's does (they run through
+    ``prefill_step`` / ``decode_step``)."""
     toks = torch.zeros((1, 4), dtype=torch.int64)
     for name, kind in (("recurrentgemma-9b", "rglru"), ("mamba2-1.3b", "ssm")):
         arch = torch_get_config(name).reduced()
         params = torch_init_params(arch, 0, device="cpu")
         with pytest.raises(NotImplementedError, match=kind):
             torch_forward(params, toks, arch)
+    with pytest.raises(NotImplementedError, match="training"):
+        torch_train_loss({}, {"inputs": toks, "labels": toks}, TARCH)
+    from repro_torch.serving import Engine, ServeConfig
+
+    arch = torch_get_config("musicgen-medium").reduced()
+    with pytest.raises(ValueError, match="token models"):
+        Engine(arch, torch_init_params(arch, 0, device="cpu"),
+               ServeConfig(batch_slots=1, max_ctx=8), device="cpu")
 
 
 @pytest.mark.parametrize("variant", [dict(gated_mlp=False),
@@ -372,3 +381,136 @@ def test_family_decode_active_mask_freezes_lanes(name):
         for n in c:
             assert not torch.equal(c[n][0], old[n][0])
             assert torch.equal(c[n][1:], old[n][1:])
+
+
+# ------------------------------------------------- the other architectures
+# MoE (grok: 4 experts top-2 reduced; arctic: 4 experts and the dense
+# residual MLP), the dense configs that need nothing but their config
+# (qwen2's QKV bias, stablelm's MHA), and musicgen on embedding inputs
+# with the GELU MLP
+NEW_CONFIGS = ["arctic-480b", "chameleon-34b", "granite-8b", "grok-1-314b",
+               "musicgen-medium", "qwen2-1.5b", "stablelm-3b"]
+MOE_CONFIGS = ["arctic-480b", "grok-1-314b"]
+_NEW_PARAMS = {}
+
+
+def _new(name, mode):
+    """A reduced config with the CIM path ``mode`` in both packages, with the
+    reference's weights carried over."""
+    if (name, mode) not in _NEW_PARAMS:
+        jarch = jax_get_config(name).reduced()
+        tarch = torch_get_config(name).reduced()
+        jarch = jarch.replace(cim=jarch.cim.with_mode(mode))
+        tarch = tarch.replace(cim=tarch.cim.with_mode(mode))
+        jp = jax_init_params(jax.random.PRNGKey(0), jarch)
+        tp = params_from_jax(jax.tree.map(np.asarray, jp), tarch, "cpu")
+        _NEW_PARAMS[name, mode] = (jarch, tarch, jp, tp)
+    return _NEW_PARAMS[name, mode]
+
+
+def _inputs(rng, arch, shape):
+    """Token ids, or seeded f32 embeddings (B, S, D) for an embedding-input
+    model; returned for both packages."""
+    if arch.input_mode == "tokens":
+        a = rng.integers(0, arch.vocab_size, shape).astype(np.int32)
+        return jnp.asarray(a), _long(a)
+    a = rng.standard_normal((*shape, arch.d_model)).astype(np.float32)
+    return jnp.asarray(a), torch.tensor(a)
+
+
+@pytest.mark.parametrize("name", NEW_CONFIGS)
+def test_new_config_params_from_jax_layout(name):
+    """Every leaf of the reference's tree lands in its layer (an MoE layer's
+    f32 router, stacked experts and arctic's dense residual under
+    ``moe``; no embedding table for musicgen), and the port's own init
+    has the converted tree's shapes and dtypes."""
+    jarch, tarch, jp, tp = _new(name, "off")
+    want = _jax_layers(jp, tarch)
+    assert ("embed" in tp) == (tarch.input_mode == "tokens")
+    assert len(tp["layers"]) == len(want) == tarch.n_layers
+    for got, ref in zip(tp["layers"], want):
+        assert set(got) == set(ref) == {
+            "norm1", "norm2", "attn", "moe" if tarch.is_moe else "ffn"}
+        for (path, a), (_, b) in zip(
+                jax.tree_util.tree_flatten_with_path(ref)[0],
+                jax.tree_util.tree_flatten_with_path(
+                    jax.tree.map(lambda t: t.numpy(), got))[0]):
+            np.testing.assert_array_equal(b, a, err_msg=str(path))
+        if tarch.is_moe:
+            assert got["moe"]["router"]["w"].dtype == torch.float32
+            assert got["moe"]["experts"]["wi"].shape == (
+                tarch.n_experts, tarch.d_model, tarch.expert_d_ff)
+            assert ("dense_mlp" in got["moe"]) == tarch.moe_dense_residual
+    own = torch_init_params(tarch, seed=0, device="cpu")
+    assert _shapes(own) == _shapes(tp)
+    own_bf16 = torch_init_params(tarch.replace(dtype="bfloat16"), seed=0,
+                                 device="cpu")
+    if tarch.is_moe:
+        assert own_bf16["layers"][0]["moe"]["router"]["w"].dtype \
+            == torch.float32
+    # served params: every CIM site packed, the digital experts not
+    grmac = tarch.replace(cim=tarch.cim.with_mode("grmac"))
+    served = torch_pack_params(tp, grmac)
+    layer = served["layers"][0]
+    packed = [layer["attn"]["wq"]["w"], served["lm_head"]["w"]]
+    if tarch.is_moe:
+        packed.append(layer["moe"]["router"]["w"])
+        assert isinstance(layer["moe"]["experts"]["wi"], torch.Tensor)
+    else:
+        packed.append(layer["ffn"]["wi"]["w"])
+    assert all(isinstance(w, PackedWeight) for w in packed)
+
+
+@pytest.mark.parametrize("mode", ["off", "grmac"])
+@pytest.mark.parametrize("name", MOE_CONFIGS)
+def test_moe_train_forward_matches_jax(name, mode):
+    """Train-path logits and the summed aux loss. With GR-MAC every
+    projection's output is quantized and the logits come out bitwise
+    (measured); with the CIM path off the exact matmuls round in XLA's
+    order or torch's, within 1e-5 (measured: at most 3.8e-6)."""
+    jarch, tarch, jp, tp = _new(name, mode)
+    jin, tin = _inputs(np.random.default_rng(0), tarch, (2, 24))
+    jl, jaux, _ = jax_forward(jp, jin, jarch)
+    tl, taux, _ = torch_forward(tp, tin, tarch)
+    atol = 0.0 if mode == "grmac" else ATOL
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=atol)
+    np.testing.assert_array_equal(tl.numpy().argmax(-1),
+                                  np.asarray(jl).argmax(-1))
+    assert float(taux) > 0
+    np.testing.assert_allclose(float(taux), float(jaux), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("name", NEW_CONFIGS)
+def test_new_config_prefill_and_decode_match_jax(name):
+    """As ``test_family_prefill_and_decode_match_jax``, every projection (the
+    MoE router and arctic's dense residual included) through GR-MAC:
+    bucketed prefill with lanes at different offsets and lengths (one
+    frozen at length 0, whose padded steps take no expert capacity),
+    then a decode step whose indices include the last slot and one past
+    it. musicgen takes seeded (B, S, D) embeddings. Logits, greedy ids and
+    every KV cache within 1e-5 (measured: at most 4.8e-7)."""
+    jarch, tarch, jp, tp = _new(name, "grmac")
+    rng = np.random.default_rng(1)
+    b, s, ctx = 4, 16, 64
+    idx = np.array([0, 3, 0, 5], np.int32)
+    lens = np.array([16, 7, 0, 12], np.int32)
+    jin, tin = _inputs(rng, tarch, (b, s))
+    jc = jax_init_cache(jarch, b, ctx, jnp.float32)
+    tc = torch_init_cache(tarch, b, ctx, torch.float32, "cpu")
+    jl, jids, jc = jax_prefill(jp, jin, jarch, jc, jnp.asarray(idx),
+                               jnp.asarray(lens))
+    tl, tids, tc = torch_prefill(tp, tin, tarch, tc, _long(idx), _long(lens))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(tids.numpy(), np.asarray(jids))
+    _caches_close(tc, jc, jarch)
+    for layer in tc["layers"]:            # the frozen lane is untouched
+        assert not any(t[2].any() for t in layer.values())
+    jtok, ttok = _inputs(rng, tarch, (b, 1))
+    at = np.array([16, 10, ctx - 1, ctx], np.int32)
+    jd, jc = jax_decode(jp, jtok, jarch, jc, jnp.asarray(at))
+    td, tc = torch_decode(tp, ttok, tarch, tc, _long(at))
+    assert td.shape == (b, tarch.padded_vocab)
+    np.testing.assert_allclose(td.numpy(), np.asarray(jd), rtol=0, atol=ATOL)
+    np.testing.assert_array_equal(td.numpy().argmax(-1),
+                                  np.asarray(jd).argmax(-1))
+    _caches_close(tc, jc, jarch)
