@@ -8,6 +8,14 @@ CUDA PyTorch (no JAX needed). Phases, each printed as JSON lines with its
 seconds:
 
 1. env      the card, torch/CUDA versions, TF32 flags (set off);
+1b. energy  the energy model (``energy_phase``): the paper's ADC and
+            energy claims C2, C3, C6 and C8 solved by a generator on the
+            card and by one on the CPU (the card's ENOBs within ``MC_TOL``
+            of the CPU's), and the cost ledgers of all 11 configs at full
+            width traced on ``meta`` (decode, a 64-token prefill, the train
+            forward), each phase's ops per token equal to
+            ``experiments/bench/e2e_energy_smoke.json``; the RG-LRU and SSM
+            configs' train phase waits for the training slice;
 2. build    the GR-MAC kernel built from ``src/repro_torch/csrc`` (one
             nvcc per source, in parallel; registers / shared memory /
             spills per instance);
@@ -57,14 +65,17 @@ seconds:
                                  expert's capacity, and the kernel and the
                                  plain version must drop the same number;
             then, for each path: a profile of three more decode steps
-            (device idle share, CUDA launches per step, top kernels and
-            host operators); the same traffic through the plain version
+            (device idle share, CUDA launches per step, which must equal
+            ``STEP_LAUNCHES``, top kernels and host operators); the same traffic through the plain version
             on the card (``cim_backend="ref"``), whose token streams must
             be identical; and the model's reduced config (drawn on the
             CPU, moved to the card) on the CPU and on the card, whose
             logits must agree within 1e-5 (5e-5 for recurrentgemma, whose
             RG-LRU amplifies an ulp of exp); arctic-480b's reduced config
-            with grok's;
+            with grok's; for paper-cim-120m, the last step result's
+            ``pj_per_token`` (priced on that first read), which must equal
+            ``energy_report``'s and lie within ``MC_TOL`` of the committed
+            ``experiments/bench/e2e_energy.json``, its fJ/Op too;
 6. forward_musicgen  musicgen-medium (embedding inputs, GELU MLP) at full
             width and depth: seeded (8, S, 1536) embeddings through
             ``prefill_step`` and decode steps, through the kernel and
@@ -102,6 +113,28 @@ SLOTS = 8
 SMALL_ATOL = {"recurrentgemma-9b": 5e-5}
 # memory kept free beside grok's weights and its oracle's head temporaries
 GROK_MARGIN = 4e9
+# Monte-Carlo tolerances of the energy phase: twice the spread (max - min)
+# that the JAX package's own estimates show over seeds 0-7 at the same
+# n_cols, rounded up to three digits (tests/test_torch_energy.py
+# recomputes each spread from the JAX package and holds these to it):
+#   enob_uniform_16384   ENOB bits, required_enob at 2**14 columns, uniform
+#                        input, FPFormat(ne, 2), ne 2-4, conv and gr_unit
+#                        (claims C2 and C8)
+#   enob_outliers_16384  ENOB bits, the same under gaussian_outliers at
+#                        FPFormat(3, 2) (claim C3)
+#   enob_narrowest_4096  ENOB bits, solve_required_enob at 2**12 columns,
+#                        FP6_E3M2, conv / gr_row / gr_unit (claim C6)
+#   pj_per_token_2048    pJ, paper-cim-120m's decode pJ/token at 2**11
+#                        columns (the engine's default)
+#   fj_per_op_2048       fJ/Op, the same report's GR fJ/Op
+MC_TOL = {"enob_uniform_16384": 0.0782, "enob_outliers_16384": 0.260,
+          "enob_narrowest_4096": 0.0879, "pj_per_token_2048": 711000.0,
+          "fj_per_op_2048": 2.58}
+
+# CUDA launches a decode step of each serve path (grok's at its cut of 4
+# layers) as counted before the energy model's hooks: they must add none
+STEP_LAUNCHES = {"serve": 1011, "serve_gemma3": 3008, "serve_mamba2": 3383,
+                 "serve_recurrentgemma": 298, "serve_grok": 608}
 
 # H100 SXM data sheet (dense): HBM rate, bf16 tensor-core and f32 peaks.
 HBM_BYTES_S = 3.35e12
@@ -261,6 +294,121 @@ def grok_depth(arch) -> int:
                       int((free - GROK_MARGIN - fixed) // layer)))
 
 
+def energy_phase(dev, card: str) -> None:
+    """The energy model on ``dev`` against the CPU, and the ledgers.
+
+    The paper's ADC claims, each solve drawn by a generator on ``dev`` and
+    by one on the CPU from the same seed (different streams): C2 (conv -
+    gr_unit >= 1.3 b at FPFormat(ne, 2), ne 2-4, uniform input), C3 (> 6 b
+    at FPFormat(3, 2) under gaussian_outliers), C8 (gr_unit below the
+    thermal crossover, itself 9.5-10.5 b) and C6 (evaluate_point at
+    FP6_E3M2, 2**12 columns: GR < 40 fJ/Op, conv > 100). Each must hold on
+    both, and every ENOB of ``dev`` lie within ``MC_TOL`` of the CPU's.
+    Then the ledgers of all 11 configs at full width, traced on ``meta``:
+    decode (batch 1, ctx 128), a 64-token prefill and the train forward;
+    each phase's ops per token must equal the committed energy smoke
+    record exactly. The RG-LRU and SSM configs' train forward is not
+    ported: their train phase is reported as waiting, not passed."""
+    import torch
+
+    from repro_torch.configs import get_config, list_configs
+    from repro_torch.core import adc, costs, dse
+    from repro_torch.core import distributions as D
+    from repro_torch.core.energy import TechParams
+    from repro_torch.core.formats import FP6_E3M2, FPFormat
+
+    def claims(device):
+        gen = torch.Generator(device=device).manual_seed(SEED)
+        t0 = time.perf_counter()
+        enob = {}
+        for ne in (2, 3, 4):
+            for arch in ("conv", "gr_unit"):
+                enob[f"uniform/{arch}/E{ne}M2"] = adc.required_enob(
+                    gen, arch, D.uniform(), FPFormat(ne, 2)).enob
+        for arch in ("conv", "gr_unit"):
+            enob[f"outliers/{arch}/E3M2"] = adc.required_enob(
+                gen, arch, D.gaussian_outliers(), FPFormat(3, 2)).enob
+        pt = dse.evaluate_point(torch.Generator(device=device).manual_seed(2),
+                                FP6_E3M2, n_cols=1 << 12)
+        enob["narrowest/conv/E3M2"] = pt.enob_conv
+        enob["narrowest/gr/E3M2"] = pt.enob_gr
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return {"enob": enob, "c6_gr_fj_per_op": pt.gr.total,
+                "c6_gr_arch": pt.gr_arch,
+                "c6_conv_fj_per_op": pt.conv.total,
+                "seconds": time.perf_counter() - t0}
+
+    ncross = TechParams().n_cross()
+    runs = {"on_card": claims(dev), "on_cpu": claims(torch.device("cpu"))}
+    failed = []
+    for where, r in runs.items():
+        e = r["enob"]
+        c2 = min(e[f"uniform/conv/E{ne}M2"] - e[f"uniform/gr_unit/E{ne}M2"]
+                 for ne in (2, 3, 4))
+        c3 = e["outliers/conv/E3M2"] - e["outliers/gr_unit/E3M2"]
+        c8 = max(e[f"uniform/gr_unit/E{ne}M2"] for ne in (2, 3, 4))
+        r["claims"] = {
+            "C2_min_conv_minus_gr_unit_bits": c2, "C2_holds": c2 >= 1.3,
+            "C3_conv_minus_gr_unit_bits": c3, "C3_holds": c3 > 6.0,
+            "C8_max_gr_unit_bits": c8, "n_cross_bits": ncross,
+            "C8_holds": bool(c8 < ncross and 9.5 < ncross < 10.5),
+            "C6_holds": bool(r["c6_gr_fj_per_op"] < 40.0
+                             and r["c6_conv_fj_per_op"] > 100.0)}
+        failed += [f"{where} {k}" for k, v in r["claims"].items()
+                   if k.endswith("_holds") and not v]
+    tol = {"uniform": MC_TOL["enob_uniform_16384"],
+           "outliers": MC_TOL["enob_outliers_16384"],
+           "narrowest": MC_TOL["enob_narrowest_4096"]}
+    diff = {k: runs["on_card"]["enob"][k] - runs["on_cpu"]["enob"][k]
+            for k in runs["on_cpu"]["enob"]}
+    far = [k for k, d in diff.items() if abs(d) > tol[k.split("/")[0]]]
+    emit({"phase": "energy_claims", "device": str(dev), **runs,
+          "card_minus_cpu_enob": diff, "tolerance_bits": tol,
+          "outside_tolerance": far, "card": card})
+    if failed or far:
+        fail(f"energy: claims failed {failed}, card against CPU outside the "
+             f"Monte-Carlo tolerance {far}")
+
+    smoke = json.loads((ROOT / "experiments" / "bench"
+                        / "e2e_energy_smoke.json").read_text())
+    traces = (("decode", lambda a: costs.trace_decode(a, batch=1, ctx=128),
+               lambda a: 1),
+              ("prefill", lambda a: costs.trace_prefill(a, bucket=64),
+               lambda a: 64),
+              ("train", costs.trace_train, costs.default_train_seq))
+    bad, waiting = [], []
+    for name in list_configs():
+        arch = get_config(name)
+        if not arch.cim.enabled:
+            arch = arch.replace(cim=arch.cim.with_mode("grmac"))
+        row = {"phase": "energy_ledger", "arch": name, "card": card}
+        for phase, trace, tokens in traces:
+            t0 = time.perf_counter()
+            try:
+                ledger = trace(arch)
+            except NotImplementedError as e:
+                if phase != "train" or "training slice" not in str(e):
+                    raise
+                row[phase] = "waits for item 9 (the RG-LRU / SSM train forms)"
+                waiting.append(name)
+                continue
+            got = 2 * ledger.macs() / tokens(arch)
+            want = smoke[name]["phases"][phase]["ops_per_token"]
+            row[phase] = {"ops_per_token": got, "record": want,
+                          "equal": got == want, "entries": len(ledger),
+                          "trace_seconds": time.perf_counter() - t0}
+            if got != want:
+                bad.append((name, phase, got, want))
+        emit(row)
+    emit({"phase": "energy_ledgers", "configs": len(list_configs()),
+          "phases_equal": 3 * len(list_configs()) - len(waiting) - len(bad),
+          "waiting": waiting, "mismatched": bad})
+    if bad or sorted(waiting) != ["mamba2-1.3b", "recurrentgemma-9b"]:
+        fail(f"energy: ledger op counts differ from the record {bad}, or "
+             f"unexpected phases wait {waiting}")
+
+
 def main() -> int:
     # The plain-version oracles allocate and free (K / n_r, M, N) block
     # temporaries of several GB between small ones; expandable segments
@@ -294,7 +442,7 @@ def main() -> int:
                                     init_params, pack_params, prefill_step,
                                     to_device)
     from repro_torch.models import moe as moe_mod
-    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving import Engine, ServeConfig, energy_report
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -308,7 +456,7 @@ def main() -> int:
     def seconds(name):
         now = time.perf_counter()
         emit({"phase": "seconds", "of": name, "seconds": now - t_phase[0],
-              "since_start": now - t_start})
+              "since_start": now - t_start, "card": card})
         t_phase[0] = now
 
     def reset_counts():
@@ -335,6 +483,10 @@ def main() -> int:
                        ("musicgen-medium", 289)):
         if per_forward(archs[name]) != want:
             fail(f"{name} no longer has {want} projections per forward")
+
+    # ------------------------------------------------------------- energy
+    energy_phase(dev, card)
+    seconds("energy")
 
     # -------------------------------------------------------------- build
     info = build()
@@ -567,11 +719,19 @@ def main() -> int:
         top_dev = sorted(kernels, key=dev_us, reverse=True)[:12]
         top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                          reverse=True)[:12]
+        want = (STEP_LAUNCHES[path] if path != "serve_grok"
+                or grok_layers == 4 else None)
+        if what == "decode_step" and want is not None \
+                and launch_calls != want * count:
+            fail(f"{path}: {launch_calls / count} CUDA launches a decode "
+                 f"step, {want} before the energy model")
         emit({"phase": "profile", "path": path, "of": what, "count": count,
               "wall_us": wall_us, "device_busy_us": busy_us,
               "device_idle_share": (1 - busy_us / wall_us) if busy_us
               else None,
               "cuda_launches_per": launch_calls / count,
+              "expected_launches_per": want if what == "decode_step"
+              else None,
               "device_ops_per": sum(e.count for e in kernels) / count,
               "top_device": [(e.key, e.count, dev_us(e)) for e in top_dev],
               "top_cpu_self": [(e.key, e.count, e.self_cpu_time_total)
@@ -604,12 +764,14 @@ def main() -> int:
             engine.add_request(p)
             torch.cuda.synchronize()
             prefill_ms.append(1e3 * (time.perf_counter() - t0))
+        last = None
         for _ in range(n_steps):
             t0 = time.perf_counter()
-            engine.step()
+            last = engine.step()
             torch.cuda.synchronize()
             decode_ms.append(1e3 * (time.perf_counter() - t0))
-        return engine, prefill_ms, decode_ms, torch.cuda.max_memory_allocated()
+        return (engine, prefill_ms, decode_ms,
+                torch.cuda.max_memory_allocated(), last)
 
     launches_by_path = {}
     by_design_total = dict.fromkeys(DESIGNS, 0)
@@ -638,12 +800,13 @@ def main() -> int:
         """Serve ``prompts`` and ``n_steps`` greedy steps through the
         kernel with the counts set to 0 just before and read just after,
         profile, then the same traffic through the plain version: the
-        streams must be identical. Returns the kernel's engine if asked."""
+        streams must be identical. Returns the kernel's engine and its last
+        step result if asked (else Nones)."""
         v = arch.vocab_size
         fwd = per_forward(arch)
         reset_counts()
         take_drops()
-        engine, prefill_ms, decode_ms, peak = run_engine(
+        engine, prefill_ms, decode_ms, peak, last = run_engine(
             arch, params, prompts, n_steps, serve_kw, None)
         launches = grmac_matmul_cuda.launches
         dropped = take_drops()
@@ -683,13 +846,14 @@ def main() -> int:
                      min(64, serve_kw.get("prefill_bucket_max", 64)))
         moe_mod.dispatch = counting_dispatch
         if not keep_engine:
-            del engine
+            # the last step result's energy thunk holds the engine too
+            del engine, last
             gc.collect()
             torch.cuda.empty_cache()
-            engine = None
+            engine = last = None
         reset_counts()
         take_drops()
-        oracle, o_prefill_ms, o_decode_ms, o_peak = run_engine(
+        oracle, o_prefill_ms, o_decode_ms, o_peak, o_last = run_engine(
             arch, params, prompts, n_steps, serve_kw, "ref")
         if grmac_matmul_cuda.launches != 0:
             fail(f"{path}: the ref run launched the kernel")
@@ -703,10 +867,10 @@ def main() -> int:
         if not same or o_dropped != dropped:
             fail(f"{path}: token streams or dropped assignments differ from "
                  "the plain version's on the card")
-        del oracle
+        del oracle, o_last
         gc.collect()
         torch.cuda.empty_cache()
-        return engine
+        return engine, last
 
     def small_cpu_vs_card(path, name):
         """The model's reduced config (its own CIM setting), its weights
@@ -765,8 +929,8 @@ def main() -> int:
     # paper-cim-120m, the first slice's path, as before
     params = init_params(paper, SEED, device=dev)
     prompts = prompts_of(paper, (5, 8, 12, 17, 24, 33, 40, 60))
-    engine = serve_path("serve", paper, params, prompts, 32,
-                        dict(max_ctx=512), keep_engine=True)
+    engine, last = serve_path("serve", paper, params, prompts, 32,
+                              dict(max_ctx=512), keep_engine=True)
     toks = torch.tensor([p[:5] for p in prompts], device=dev)
     logits_k, _, _ = forward(params, toks, paper)
     logits_r, _, _ = forward(params, toks, paper.replace(
@@ -800,7 +964,40 @@ def main() -> int:
     if small_diff > TOL or not small_ids_equal:
         fail(f"the card disagrees with the CPU on a small input "
              f"(max |diff| {small_diff}, ids equal {small_ids_equal})")
-    del engine, params, logits_k, logits_r, logits_p
+    # the served engine's decode-phase energy: priced on this first read
+    # (a meta trace and the Monte-Carlo solve on the card), equal to the
+    # energy report's, within MC_TOL of the committed record
+    t0 = time.perf_counter()
+    pj = last.pj_per_token
+    pj_seconds = time.perf_counter() - t0
+    rep = energy_report(paper)
+    record = json.loads((ROOT / "experiments" / "bench"
+                         / "e2e_energy.json").read_text())[paper.name]
+    pj_ok = (pj == rep["pj_per_token"] and abs(pj - record["pj_per_token"])
+             <= MC_TOL["pj_per_token_2048"] and abs(
+                 rep["fj_per_op"] - record["fj_per_op"])
+             <= MC_TOL["fj_per_op_2048"])
+    emit({"phase": "serve_energy", "arch": paper.name,
+          "step_pj_per_token": pj, "first_read_seconds": pj_seconds,
+          "report_pj_per_token": rep["pj_per_token"],
+          "fj_per_op": rep["fj_per_op"],
+          "conventional_fj_per_op": rep["conventional_fj_per_op"],
+          "conventional_pj_per_token":
+              rep["phases"]["decode"]["conventional_pj_per_token"],
+          "ops_per_token": rep["ops_per_token"],
+          "record_pj_per_token": record["pj_per_token"],
+          "record_fj_per_op": record["fj_per_op"],
+          "record_conventional_fj_per_op": record["conventional_fj_per_op"],
+          "tolerance": {k: MC_TOL[k] for k in ("pj_per_token_2048",
+                                               "fj_per_op_2048")},
+          "sites": {site: {k: v[k] for k in ("pj_per_token", "fj_per_op",
+                                               "enob")}
+                    for site, v in rep["sites"].items()},
+          "ok": pj_ok, "card": card})
+    if not pj_ok:
+        fail("serve: the engine's pJ/token differs from energy_report's or "
+             "lies outside the Monte-Carlo tolerance of the record")
+    del engine, last, params, logits_k, logits_r, logits_p
     gc.collect()
     torch.cuda.empty_cache()
     seconds("serve")

@@ -33,7 +33,12 @@ __all__ = [
     "int_quantize",
     "quantize_any",
     "parse_format",
+    "sqnr_db",
+    "measured_sqnr_db",
+    "max_entropy_sample",
 ]
+
+_TINY = 1e-30
 
 
 @dataclasses.dataclass(frozen=True)
@@ -177,3 +182,33 @@ def quantize_any(x: torch.Tensor, fmt) -> torch.Tensor:
     if isinstance(fmt, IntFormat):
         return int_quantize(x, fmt)
     return quantize(x, fmt)
+
+
+def sqnr_db(fmt: FPFormat) -> float:
+    """Theoretical format SQNR (paper §IV-A): 6.02·N_M + 10.79 dB, with
+    ``N_M`` the stored mantissa bits (the implicit leading bit gives the
+    +10.79 dB offset against the integer formula). Distribution-independent
+    while the data stays in range."""
+    return 6.02 * fmt.n_man + 10.79
+
+
+def measured_sqnr_db(x: torch.Tensor, xq: torch.Tensor) -> torch.Tensor:
+    """Empirical signal-to-quantization-noise ratio in dB."""
+    p_sig = torch.mean(torch.square(x))
+    p_err = torch.mean(torch.square(x - xq))
+    return 10.0 * torch.log10(p_sig / torch.clamp(p_err, min=_TINY))
+
+
+def max_entropy_sample(generator: torch.Generator, shape: tuple,
+                       fmt: FPFormat) -> torch.Tensor:
+    """Sample the format's maximum-entropy distribution (§IV-A ii): the
+    sign, the stored exponent code and the stored mantissa bits are each
+    uniform. Drawn by ``generator`` on its own device, f32."""
+    kw = dict(generator=generator, device=generator.device)
+    sign = torch.where(torch.randint(0, 2, shape, **kw) == 1, 1.0, -1.0)
+    e_stored = torch.randint(0, 2**fmt.n_exp, shape, **kw)
+    m_bits = torch.randint(0, 2**fmt.n_man, shape, **kw)
+    is_normal = (e_stored > 0).to(torch.float32)
+    e_eff = torch.clamp(e_stored, min=1)
+    m = (is_normal + m_bits.to(torch.float32) / 2**fmt.n_man) / 2.0
+    return sign * m * pow2i(e_eff - fmt.e_max)

@@ -12,9 +12,12 @@ backend    implementation
 ``auto``   the CUDA kernel (``grmac_matmul.grmac_matmul_cuda``) for a
            CUDA tensor, the plain version (``ref.grmac_matmul_ref``) for
            a CPU tensor
-``ref``    the plain version wherever the tensor lies (the oracle the
+``ref``    the plain version on the CPU or the card (the oracle the
            kernel is held against on the card)
 =========  ==============================================================
+
+A tensor on any other device (``meta`` included) raises: nothing falls
+back to the plain version quietly.
 
 On the card ``wq`` is encoded into codes (``packed.pack_quantized``, with
 unit scales, checked to decode back to ``wq``) for the kernel, which reads
@@ -73,6 +76,10 @@ def grmac_matmul(
     ``design`` forces one of the kernel's designs (None: its own choice).
     """
     b = resolve_backend(backend)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(
+            f"GR-MAC on a {x.device.type} tensor: the kernel runs on CUDA "
+            "tensors and the plain version on CPU tensors")
     if b == "ref" or x.device.type == "cpu":
         return grmac_matmul_ref(
             pad_to_multiple(x, 1, n_r), pad_to_multiple(wq, 0, n_r),

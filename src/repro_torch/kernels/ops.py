@@ -24,9 +24,13 @@ absmax reduction) and the post-scale itself; a raw weight is packed on
 the way. The plain path (CPU tensors, or ``backend="ref"``) runs the
 reference's operations one by one, a packed weight decoded first.
 
-``site`` and ``logical_n`` are kept for the energy ledger, which is not
-ported yet (the LM head records the true ``vocab_size`` there); neither
-changes the numbers.
+Every call records its contract ``(site, M, K, N)`` under the resolved
+design into the active ``core.costs`` ledger (a no-op outside
+``costs.recording``); ``logical_n`` is the N recorded where it differs from
+the physical one (the LM head's true ``vocab_size``). On a ``meta`` tensor
+(the ledger's shape-only trace) the call records and returns an empty
+tensor of the output's shape: neither the kernel nor the plain version
+runs.
 """
 from __future__ import annotations
 
@@ -35,6 +39,7 @@ from typing import Optional, Union
 
 import torch
 
+from repro_torch.core import costs
 from repro_torch.core.cim_config import CIMConfig
 from repro_torch.core.formats import IntFormat, quantize, quantize_any
 
@@ -148,17 +153,21 @@ def cim_matmul(
     ``backend=`` argument > ``cfg.backend``. A ``PackedWeight`` serves
     only a site that resolves to the grmac design it was packed for.
     """
-    del logical_n  # ledger metadata; the matmul runs at the physical shape
     eff = cfg.for_site(site) if cfg is not None else None
+    lead = x.shape[:-1]
+    k = x.shape[-1]
+    n = w.shape[-1]
+    m = math.prod(lead)
+    costs.record_matmul(site, m, k, n if logical_n is None else logical_n,
+                        eff)
+    if x.device.type == "meta":
+        return x.new_empty(*lead, n)
     if isinstance(w, PackedWeight):
         _check_packed(w, x, eff)
     elif eff is None or not eff.enabled:
         return x @ w
-    lead = x.shape[:-1]
-    k = x.shape[-1]
-    n = w.shape[-1]
     backend = resolve_backend(backend or eff.backend)
-    x2 = x.reshape(math.prod(lead), k)
+    x2 = x.reshape(m, k)
     if isinstance(w, PackedWeight):
         out = _cim_matmul_2d(x2, w, eff, backend)
     else:

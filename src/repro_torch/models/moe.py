@@ -12,7 +12,8 @@ gates renormalized over the k choices. Assignments fill their expert's
 capacity in token-major, k-minor order; those past the capacity, and
 every assignment of a token outside ``valid``, are dropped and combine to
 zero. The expert products are digital batched matmuls, as in the
-reference. Arctic's ``moe_dense_residual`` adds a dense MLP (site
+reference, and record their logical contracts (t * k routed rows) into the
+cost ledger. Arctic's ``moe_dense_residual`` adds a dense MLP (site
 ``mlp``) in parallel. The aux load-balancing loss is E * sum_e f_e * p_e
 over the top-1 choice.
 """
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import costs
 from repro_torch.models import layers as L
 
 __all__ = ["init_moe", "moe", "capacity", "route", "dispatch", "combine"]
@@ -127,6 +129,14 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig,
     aux = e * torch.sum(f_e * probs.mean(dim=0))
 
     buf, slot, keep = dispatch(xf, expert_idx, vf, e, capacity(t, cfg))
+    # the ledger counts the logical routed compute, t * k assignments
+    # through each expert matmul, not the (E, cap) buffer; the products
+    # stay digital, priced at the "moe_expert" site's design
+    f = cfg.expert_d_ff
+    eff = cfg.cim.for_site("moe_expert")
+    for _ in range(2 if cfg.gated_mlp else 1):
+        costs.record_matmul("moe_expert", t * k, d, f, eff)
+    costs.record_matmul("moe_expert", t * k, f, d, eff)
     ex = p["experts"]
     h = torch.bmm(buf, ex["wi"].to(x.dtype))
     if cfg.gated_mlp:

@@ -95,10 +95,12 @@ def init_params(cfg: ArchConfig, seed: int,
     the host: a seed gives the same weights on every run on one kind of
     device, but the CPU and the card draw different streams. To hold the
     card against the CPU, draw on the CPU and move the tree
-    (``to_device``)."""
+    (``to_device``). On ``meta`` (the cost ledger's shape-only tree) no
+    generator can live: the draws there take none and hold no values."""
     device = resolve_device(device)
     _check_blocks(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = (None if device.type == "meta"
+           else torch.Generator(device=device).manual_seed(seed))
     dt = _dtype(cfg)
     d, h, kv, dh, f = (cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head,
                        cfg.d_ff)

@@ -1,6 +1,8 @@
-"""Serving for the port: the batched engine and its request types."""
-from repro_torch.serving.engine import Engine, ServeConfig, StepResult
+"""Serving for the port: the batched engine, its request types and the
+energy report."""
+from repro_torch.serving.engine import (Engine, ServeConfig, StepResult,
+                                       energy_report)
 from repro_torch.serving.params import RequestOutput, SamplingParams
 
 __all__ = ["Engine", "ServeConfig", "StepResult", "SamplingParams",
-           "RequestOutput"]
+           "RequestOutput", "energy_report"]

@@ -43,42 +43,59 @@ embedding inputs are served through ``models.prefill_step`` /
 ``decode_step``, not here: the engine refuses them, as the reference's
 does.
 
-Not ported yet: sampling (``temperature > 0`` raises), the prefix cache,
-the speculative-decode seams and the energy report.
+Energy: ``energy_report`` prices the ``core.costs`` ledgers of a
+shape-only (``meta``) run of the model functions per site, and
+``Engine.energy_per_token`` prices one decode step's ledger at batch 1,
+once per engine; ``StepResult.pj_per_token`` and
+``RequestOutput.pj_per_token`` read it lazily, so a caller that does not
+read them pays no trace and no Monte-Carlo solve. The solve draws on the
+engine's device. The ledger traces its own ``meta`` tree, never the
+served (packed) weights.
+
+Not ported yet: sampling (``temperature > 0`` raises), the prefix cache
+and the speculative-decode seams.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import costs
 from repro_torch.core.device import require_full_f32, resolve_device
 from repro_torch.models import (decode_step, init_cache,
                                 pack_params, prefill_step)
 from repro_torch.serving.params import RequestOutput, SamplingParams
 
 __all__ = ["ServeConfig", "Engine", "StepResult", "SamplingParams",
-           "RequestOutput"]
+           "RequestOutput", "energy_report"]
 
 
 class StepResult(dict):
     """``Engine.step`` result: slot id -> token emitted this step, plus
     ``finished`` — the slot ids freed this step (EOS, ``max_tokens``, or
     context exhaustion, and completions recorded at prefill time), in
-    ascending slot order — and ``outputs``, a ``RequestOutput`` per live
-    request. ``pj_per_token`` is None until the energy model is ported."""
-
-    pj_per_token = None
+    ascending slot order —, ``outputs``, a ``RequestOutput`` per live
+    request, and ``pj_per_token``, the decode-phase CIM energy per
+    generated token (None when the arch serves without the CIM path),
+    resolved on first read through a thunk into
+    ``Engine.energy_per_token``'s memo."""
 
     def __init__(self, tokens: dict, finished: List[int],
+                 energy_fn: Optional[Callable[[], Optional[float]]] = None,
                  outputs: Optional[List[RequestOutput]] = None):
         super().__init__(tokens)
         self.finished = finished
         self.outputs: List[RequestOutput] = outputs if outputs is not None \
             else []
+        self._energy_fn = energy_fn
+
+    @property
+    def pj_per_token(self) -> Optional[float]:
+        return self._energy_fn() if self._energy_fn is not None else None
 
 
 @dataclasses.dataclass
@@ -142,6 +159,8 @@ class Engine:
         self._pending_finished: List[int] = []
         self.stats = {"prefill_dispatches": 0, "decode_steps": 0,
                       "prefill_tokens": 0}
+        # the decode-phase energy report, priced on first request
+        self._energy: Optional[dict] = None
 
     def _snapshot(self, host_state: np.ndarray) -> torch.Tensor:
         """A device copy of mutable per-slot host state. ``torch.tensor``
@@ -341,10 +360,11 @@ class Engine:
         """
         pending, self._pending_finished = self._pending_finished, []
         outputs = [RequestOutput(slot=s, tokens=[], finished=True,
-                                 finish_reason=self._finish_reason[s])
+                                 finish_reason=self._finish_reason[s],
+                                 _energy_fn=self._pj_per_token)
                    for s in pending]
         if not self.active.any():
-            return StepResult({}, pending, outputs)
+            return StepResult({}, pending, self._pj_per_token, outputs)
         ids = self._fetch(self._decode(self._last_host[:, None], self.active))
         act = np.where(self.active)[0]
         out = {}
@@ -367,11 +387,29 @@ class Engine:
                 self._finish_reason[s] = reason
             outputs.append(RequestOutput(
                 slot=int(s), tokens=[out[int(s)]], finished=bool(done[s]),
-                finish_reason=reason))
+                finish_reason=reason, _energy_fn=self._pj_per_token))
         finished = pending + [int(s) for s in np.where(done)[0]]
         self.active[done] = False
         self.stats["decode_steps"] += 1
-        return StepResult(out, finished, outputs)
+        return StepResult(out, finished, self._pj_per_token, outputs)
+
+    # ------------------------------------------------------------ energy
+    def energy_per_token(self) -> Optional[dict]:
+        """Decode-phase energy report of the served arch: the ledger of one
+        decode step at batch 1, priced per site per generated token with
+        the Monte-Carlo solve on this engine's device. Computed once per
+        engine; None when the arch's CIM path is off."""
+        if not self.arch.cim.enabled:
+            return None
+        if self._energy is None:
+            self._energy = costs.price_ledger(
+                costs.trace_decode(self.arch), 1, device=self.device)
+            self.stats["pj_per_token"] = self._energy["pj_per_token"]
+        return self._energy
+
+    def _pj_per_token(self) -> Optional[float]:
+        rep = self.energy_per_token()
+        return None if rep is None else rep["pj_per_token"]
 
     @staticmethod
     def _fetch(ids_dev: torch.Tensor) -> np.ndarray:
@@ -379,3 +417,35 @@ class Engine:
         (batch_slots,) int32 id array per decode step and per first-token
         selection."""
         return ids_dev.cpu().numpy()
+
+
+def energy_report(arch: ArchConfig, *, batch: int = 1,
+                  prefill_bucket: int = 128,
+                  train_seq: Optional[int] = None,
+                  seed: int = 0, n_cols: int = 1 << 11,
+                  device: Optional[Union[str, torch.device]] = None) -> dict:
+    """Ledger-derived CIM energy report (pJ/token) of the three phases:
+    ``core.costs`` ledgers of one ``prefill_bucket``-token prefill
+    dispatch, one decode step and one train forward, each contract priced
+    at its site's resolved design. The top-level keys alias the decode
+    phase; ``phases`` holds every phase per site. ``seed`` / ``n_cols``
+    configure the Monte-Carlo ENOB solve, which draws on ``device`` (None:
+    the card). Raises ``NotImplementedError`` for RG-LRU and SSM archs,
+    whose train forward is not ported yet."""
+    if not arch.cim.enabled:
+        return {"enabled": False}
+    phases = costs.phase_report(arch, batch=batch,
+                                prefill_bucket=prefill_bucket,
+                                train_seq=train_seq, seed=seed,
+                                n_cols=n_cols, device=device)
+    dec = phases["decode"]
+    return {
+        "enabled": True,
+        "phases": phases,
+        "fj_per_op": dec["fj_per_op"],
+        "conventional_fj_per_op": dec["conventional_fj_per_op"],
+        "ops_per_token": dec["ops_per_token"],
+        "analog_ops_per_token": dec["analog_ops_per_token"],
+        "pj_per_token": dec["pj_per_token"],
+        "sites": dec["sites"],
+    }

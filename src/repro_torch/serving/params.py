@@ -60,8 +60,9 @@ class RequestOutput:
     ``tokens`` are the tokens emitted this step in order (empty for a
     completion surfaced from prefill time); ``finished``/``finish_reason``
     report terminal state (``"eos"`` / ``"length"`` / ``"ctx"``);
-    ``pj_per_token`` is the decode-phase CIM energy per generated token,
-    None until the energy model is ported."""
+    ``pj_per_token`` is the decode-phase CIM energy per generated token
+    (``Engine.energy_per_token``, resolved on first read; None when the
+    arch serves without the CIM path)."""
     slot: int
     tokens: List[int]
     finished: bool = False

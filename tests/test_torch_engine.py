@@ -197,6 +197,76 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(params,
         torch_init_params(TARCH, seed=0)
 
 
+# ------------------------------------------------------------------ energy
+def test_pj_per_token_is_the_energy_reports_decode_value(params):
+    """Every step result and request output reads the decode-phase pJ per
+    token of ``energy_report``, priced on the first read (not before), a
+    completion surfaced from prefill time included; None with the CIM path
+    off."""
+    _, tp = params
+    eng = teng.Engine(TARCH, tp, teng.ServeConfig(batch_slots=3, max_ctx=64),
+                      device="cpu")
+    eng.add_request(_prompt(31, 7))
+    eng.add_request(_prompt(30, 5), params=TorchSP(max_tokens=1))
+    results = [eng.step() for _ in range(3)]
+    assert "pj_per_token" not in eng.stats and eng._energy is None
+    want = teng.energy_report(TARCH, device="cpu")["pj_per_token"]
+    assert want > 0
+    assert results[0].outputs[0].finish_reason == "length"
+    for r in results:
+        assert r.pj_per_token == want
+        assert [o.pj_per_token for o in r.outputs] == [want] * len(r.outputs)
+    assert eng.stats["pj_per_token"] == want
+    assert eng.energy_per_token() is eng.energy_per_token()
+
+    off = dataclasses.replace(TARCH, cim=CIMConfig())
+    eng = teng.Engine(off, tp, teng.ServeConfig(batch_slots=1, max_ctx=64),
+                      device="cpu")
+    eng.add_request(_prompt(32, 4))
+    r = eng.step()
+    assert r.pj_per_token is None and r.outputs[0].pj_per_token is None
+    assert eng.energy_per_token() is None
+    assert teng.energy_report(off, device="cpu") == {"enabled": False}
+
+
+def test_reading_pj_per_token_leaves_the_streams_unchanged(params):
+    _, tp = params
+    streams = []
+    for read in (False, True):
+        eng = teng.Engine(TARCH, tp, teng.ServeConfig(batch_slots=2,
+                                                      max_ctx=64),
+                          device="cpu")
+        eng.add_request(_prompt(33, 9))
+        for _ in range(3):
+            r = eng.step()
+            if read:
+                assert r.pj_per_token is not None
+        eng.add_request(_prompt(34, 6))
+        for _ in range(3):
+            eng.step()
+        streams.append([list(t) for t in eng.tokens])
+    assert streams[0] == streams[1]
+
+
+def _keys(tree):
+    """The nested key structure of a report (leaves dropped)."""
+    if isinstance(tree, dict):
+        return {k: _keys(v) for k, v in tree.items()}
+    return None
+
+
+def test_energy_report_keys_match_jax():
+    nc = 1 << 7
+    want = jeng.energy_report(JARCH, prefill_bucket=16, n_cols=nc)
+    got = teng.energy_report(TARCH, prefill_bucket=16, n_cols=nc,
+                             device="cpu")
+    assert _keys(got) == _keys(want)
+    for phase in ("decode", "prefill", "train"):
+        for key in ("tokens", "macs_per_token", "ops_per_token",
+                    "analog_ops_per_token"):
+            assert got["phases"][phase][key] == want["phases"][phase][key]
+
+
 # ------------------------------------------------------------ other blocks
 FAMILIES = ["gemma3-1b", "recurrentgemma-9b", "mamba2-1.3b", "grok-1-314b"]
 _FAMILY_PARAMS = {}

@@ -4,7 +4,9 @@ against its plain version, prepared weights against the per-call path,
 the engine's streams through the kernel against the plain version's on
 the card (every block kind, MoE FFNs), and the cached paths on the card
 against the CPU (weights drawn on the CPU and moved: the two devices'
-generators draw different streams).
+generators draw different streams), and the energy model with a card
+present (the paper's ADC claims on a CUDA generator, the ledger's ``meta``
+trace, the engine's pJ/token, ``grmac_matmul`` refusing ``meta``).
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. This file imports no JAX, so it also runs on the
@@ -505,3 +507,68 @@ def test_embedding_model_through_the_kernel_equals_the_plain_version():
         out.append(torch.stack(logits))
     assert torch.equal(out[0], out[1])
     assert bool(torch.isfinite(out[0]).all())
+
+
+# ------------------------------------------------------------------ energy
+@pytest.mark.gpu
+def test_paper_claims_on_a_card_generator():
+    """The paper's ADC claims (C2, C3, C8) drawn by a CUDA generator; the
+    samples live on the card, and the solve memo keeps the card's and the
+    CPU's streams apart."""
+    _need_card()
+    from repro_torch.core import adc, distributions as D, energy
+    from repro_torch.core.formats import FP6_E3M2, FPFormat
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    assert D.uniform()(gen, (4, 3)).device.type == "cuda"
+    ncross = energy.TechParams().n_cross()
+    deltas = []
+    for ne in (2, 3, 4):
+        fmt = FPFormat(ne, 2)
+        rc = adc.required_enob(gen, "conv", D.uniform(), fmt)
+        ru = adc.required_enob(gen, "gr_unit", D.uniform(), fmt)
+        deltas.append(rc.enob - ru.enob)
+        assert ru.enob < ncross
+    assert min(deltas) >= 1.3, deltas
+    rc = adc.required_enob(gen, "conv", D.gaussian_outliers(), FPFormat(3, 2))
+    ru = adc.required_enob(gen, "gr_unit", D.gaussian_outliers(),
+                           FPFormat(3, 2))
+    assert rc.enob - ru.enob > 6.0
+    card = adc.solve_required_enob("gr_row", FP6_E3M2, n_cols=1 << 11)
+    cpu = adc.solve_required_enob("gr_row", FP6_E3M2, n_cols=1 << 11,
+                                  device="cpu")
+    assert card is adc.solve_required_enob("gr_row", FP6_E3M2, n_cols=1 << 11,
+                                           device="cuda")
+    assert card is not cpu
+
+
+@pytest.mark.gpu
+def test_meta_trace_and_engine_energy_with_a_card():
+    """The ledger's trace stays on ``meta`` with a card present (it
+    launches nothing); the engine on the card prices it with the card's
+    solve, equal to ``energy_report``'s; ``grmac_matmul`` refuses a meta
+    tensor."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.core import costs
+    from repro_torch.core.formats import FP4_E2M1, FP6_E3M2
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig, energy_report
+
+    arch = get_config("paper-cim-120m")
+    before = grmac_matmul_cuda.launches
+    ledger = costs.trace_decode(arch)
+    assert grmac_matmul_cuda.launches == before
+    assert 2 * ledger.macs() == 275644416
+    small = arch.reduced()
+    eng = Engine(small, init_params(small, seed=0),
+                 ServeConfig(batch_slots=2, max_ctx=64))
+    eng.add_request([1, 2, 3])
+    r = eng.step()
+    assert r.pj_per_token == energy_report(small)["pj_per_token"] > 0
+    with pytest.raises(ValueError, match="meta tensor"):
+        dispatch.grmac_matmul(torch.empty((8, 64), device="meta"),
+                              torch.empty((64, 16), device="meta"),
+                              fmt_x=FP6_E3M2, fmt_w=FP4_E2M1)
