@@ -76,6 +76,22 @@ seconds:
             ``pj_per_token`` (priced on that first read), which must equal
             ``energy_report``'s and lie within ``MC_TOL`` of the committed
             ``experiments/bench/e2e_energy.json``, its fJ/Op too;
+5b. serve_scheduler  paper-cim-120m's weights under the ``Scheduler``
+            (8 slots, max_ctx 512, prefill budget 16, preemption at age
+            80, prefix cache on), the counts set to 0 before each run: run
+            1 open-loop greedy traffic (48 requests, 16 on shared system
+            prompts, at 1.5x capacity), run 2 closed-loop at 8 clients,
+            sampled (seeded, keyed and two greedy lanes); each through the
+            kernel and the plain version, whose streams and policy-clock
+            metrics must be equal, with 85 launches a dispatch and one
+            fetch a decode step and a first token; run 1 must preempt and
+            hit the prefix cache; pJ/token equal to ``serve_energy``'s;
+            then a profile of three sampled decode steps
+            (``serve_sampled`` in ``STEP_LAUNCHES``). Lines
+            ``*_prefix_hit``: for paper-cim-120m here, and gemma3-1b (a
+            shared prefix past its 512-slot rings) and mamba2-1.3b in their
+            serve phases, at full width, one request at a time: a prefix
+            hit's stream equal to a cold prefill's, the prefix adopted;
 6. forward_musicgen  musicgen-medium (embedding inputs, GELU MLP) at full
             width and depth: seeded (8, S, 1536) embeddings through
             ``prefill_step`` and decode steps, through the kernel and
@@ -132,9 +148,14 @@ MC_TOL = {"enob_uniform_16384": 0.0782, "enob_outliers_16384": 0.260,
           "fj_per_op_2048": 2.58}
 
 # CUDA launches a decode step of each serve path (grok's at its cut of 4
-# layers) as counted before the energy model's hooks: they must add none
+# layers) as counted before the energy model's hooks: they must add none.
+# serve_sampled: paper-cim-120m's step with 6 of 8 lanes sampling, the
+# greedy 1011 less the argmax and its cast (2), plus the sampler's 41: 29
+# for the counter hash over the (8, 32 000) tile, 12 for the Gumbel-max
+# and the per-lane choice
 STEP_LAUNCHES = {"serve": 1011, "serve_gemma3": 3008, "serve_mamba2": 3383,
-                 "serve_recurrentgemma": 298, "serve_grok": 608}
+                 "serve_recurrentgemma": 298, "serve_grok": 608,
+                 "serve_sampled": 1050}
 
 # H100 SXM data sheet (dense): HBM rate, bf16 tensor-core and f32 peaks.
 HBM_BYTES_S = 3.35e12
@@ -926,6 +947,265 @@ def main() -> int:
         return [[int(t) for t in rng.integers(0, arch.vocab_size, n)]
                 for n in lens]
 
+    # ------------------------------------------------------ serve_scheduler
+    from repro_torch.serving import sampling
+    from repro_torch.serving.params import SamplingParams
+    from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
+                                               StepClock, run_open_loop,
+                                               synth_shared_prefix_traffic,
+                                               synth_traffic)
+
+    def capacity(out_len):
+        """Saturation rate of ``SLOTS`` lanes (requests per dispatch unit),
+        as the reference's benchmarks/traffic_bench.py estimates it: a
+        request holds a slot for its mean output plus ~2 prefill chunks."""
+        return SLOTS / ((out_len[0] + out_len[1]) / 2.0 + 2.0)
+
+    def policy(m):
+        """The metrics read off the policy clock (the wall-clock ones
+        left out): equal between the kernel and the plain version."""
+        return {k: v for k, v in m.items()
+                if not k.endswith(("_ms", "_s"))}
+
+    def scheduled_run(arch, params, backend, drive):
+        """One scheduler run on a new engine (8 slots, max_ctx 512, prefix
+        cache on) through ``drive(sched, clock)``, the kernel's launches
+        counted from 0 just before and read just after, and every fetch
+        and first-token selection counted."""
+        engine = Engine(arch, params, ServeConfig(
+            batch_slots=SLOTS, max_ctx=512, cim_backend=backend,
+            prefix_cache_bytes=1 << 28), device=dev)
+        seen = {"fetch": 0, "first": 0}
+        real_fetch, real_finish = engine._fetch, engine.finish_prefill
+
+        def fetch(ids):
+            seen["fetch"] += 1
+            return real_fetch(ids)
+
+        def finish(slot, key=None):
+            seen["first"] += 1
+            return real_finish(slot, key=key)
+
+        engine._fetch, engine.finish_prefill = fetch, finish
+        clock = StepClock()
+        sched = Scheduler(engine, SchedulerConfig(prefill_token_budget=16,
+                                                  preempt_age=80.0),
+                          clock=clock.now)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        steps = drive(sched, clock)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = grmac_matmul_cuda.launches
+        return sched, engine, dict(seen, steps=steps, wall_s=wall,
+                                   launches=launches)
+
+    def open_loop(arch):
+        """Run 1: open-loop greedy traffic, uniform prompts then Zipf-shared
+        system prompts, each at 1.5x its capacity (the reference's
+        traffic_bench full-run and shared-prefix smoke settings), merged
+        in arrival order."""
+        v = arch.vocab_size
+        traffic = sorted(
+            synth_traffic(32, 1.5 * capacity((4, 32)), seed=0, vocab_size=v,
+                          prompt_len=(8, 48), out_len=(4, 32))
+            + synth_shared_prefix_traffic(
+                16, 1.5 * capacity((4, 16)), seed=1, vocab_size=v,
+                n_prefixes=4, prefix_len=24, user_len=(3, 10),
+                out_len=(4, 16)),
+            key=lambda t: t.arrival)
+
+        def drive(sched, clock):
+            return run_open_loop(sched, traffic, tick=clock.tick)
+        return drive
+
+    # run 2's requests that decode greedily inside the sampled batch
+    GREEDY = (3, 8)
+
+    def closed_loop(arch):
+        """Run 2: 8 clients closed-loop over a seeded trace, sampled at
+        T = 0.8: even requests seeded by their index, odd ones from the
+        caller's key (``SEED``), requests ``GREEDY`` at T = 0."""
+        trace = synth_traffic(24, 1.0, seed=2, vocab_size=arch.vocab_size,
+                              prompt_len=(8, 48), out_len=(4, 32))
+
+        def params_of(i, t):
+            temp = 0.0 if i in GREEDY else 0.8
+            return SamplingParams(max_tokens=t.max_new_tokens,
+                                  temperature=temp,
+                                  seed=i if i % 2 == 0 else None)
+
+        def drive(sched, clock):
+            eng = sched.engine
+            key, i, steps = sampling.key(SEED), 0, 0
+            while True:
+                while i < len(trace) and i - len(sched.finished) < SLOTS:
+                    sched.submit(trace[i].prompt, params=params_of(
+                        i, trace[i]))
+                    i += 1
+                if i >= len(trace) and sched.idle():
+                    return steps
+                key, sub = sampling.split(key)
+                before = (eng.stats["prefill_dispatches"]
+                          + eng.stats["decode_steps"])
+                sched.step(sub)
+                steps += 1
+                clock.tick(max(1.0, eng.stats["prefill_dispatches"]
+                               + eng.stats["decode_steps"] - before))
+        return drive
+
+    def serve_scheduler(arch, params, pj):
+        """Both runs through the kernel and through the plain version: the
+        streams and every policy-clock metric equal, the kernel launched
+        85 times a dispatch, one fetch a decode step and a first token;
+        run 1 preempts and hits the prefix cache; the kernel runs' pJ/token
+        is ``serve_energy``'s. Then three sampled decode steps profiled."""
+        fwd = per_forward(arch)
+        launches_by_path["serve_scheduler"] = 0
+        for run, make in (("open_loop_greedy", open_loop),
+                          ("closed_loop_sampled", closed_loop)):
+            drive = make(arch)
+            out = {}
+            for backend in (None, "ref"):
+                sched, eng, seen = scheduled_run(arch, params, backend, drive)
+                m = sched.metrics(slo_ttft=80.0)
+                dispatches = (eng.stats["prefill_dispatches"]
+                              + eng.stats["decode_steps"])
+                out[backend] = (sched, eng, seen, m, dispatches)
+                emit({"phase": "serve_scheduler", "run": run,
+                      "backend": backend or "kernel", "arch": arch.name,
+                      "batch_slots": SLOTS, "max_ctx": 512,
+                      "prefill_token_budget": 16, "preempt_age": 80.0,
+                      "prefix_cache_bytes": 1 << 28,
+                      "requests": len(sched.requests),
+                      "scheduler_steps": seen["steps"],
+                      "dispatches": dispatches,
+                      "engine_stats": eng.stats,
+                      "kernel_launches": seen["launches"],
+                      "expected_launches": (fwd * dispatches if backend
+                                            is None else 0),
+                      "fetches": seen["fetch"],
+                      "first_token_selections": seen["first"],
+                      "wall_s": seen["wall_s"],
+                      "wall_ms_per_dispatch":
+                          1e3 * seen["wall_s"] / dispatches,
+                      "metrics_slo_ttft_80": m, "card": card})
+                if seen["launches"] != (fwd * dispatches if backend is None
+                                        else 0):
+                    fail(f"serve_scheduler {run}: {seen['launches']} kernel "
+                         f"launches for {dispatches} dispatches")
+                if seen["fetch"] != (eng.stats["decode_steps"]
+                                     + seen["first"]):
+                    fail(f"serve_scheduler {run}: {seen['fetch']} fetches for "
+                         f"{eng.stats['decode_steps']} decode steps and "
+                         f"{seen['first']} first tokens")
+            k_sched, k_eng, k_seen, k_m, _ = out[None]
+            r_sched, _, _, r_m, _ = out["ref"]
+            launches_by_path["serve_scheduler"] += k_seen["launches"]
+            streams = [r.generated for r in k_sched.requests]
+            same = streams == [r.generated for r in r_sched.requests]
+            same_m = policy(k_m) == policy(r_m)
+            greedy_lanes = [streams[i] for i in GREEDY] if \
+                run == "closed_loop_sampled" else None
+            emit({"phase": "serve_scheduler_oracle", "run": run,
+                  "streams_equal": same, "policy_metrics_equal": same_m,
+                  "differing_metrics": sorted(
+                      k for k in policy(k_m)
+                      if policy(k_m)[k] != policy(r_m).get(k)),
+                  "pj_per_token": k_m["pj_per_token"],
+                  "serve_energy_pj_per_token": pj,
+                  "greedy_lane_streams": greedy_lanes, "card": card})
+            if not same or not same_m:
+                fail(f"serve_scheduler {run}: streams or policy metrics "
+                     "differ from the plain version's on the card")
+            if k_m["pj_per_token"] != pj:
+                fail(f"serve_scheduler {run}: pJ/token {k_m['pj_per_token']} "
+                     f"is not serve_energy's {pj}")
+            if run == "open_loop_greedy" and (k_m["preempted"] < 1
+                                              or k_m["prefix_hits"] < 1):
+                fail("serve_scheduler: run 1 neither preempted nor hit the "
+                     "prefix cache")
+            if run == "closed_loop_sampled":
+                # three sampled decode steps of a full batch: 4 seeded and
+                # 2 keyed lanes at T = 0.8, 2 greedy
+                eng = k_eng
+                prompts = prompts_of(arch, (5, 8, 12, 17, 24, 33, 40, 60))
+                for i, p in enumerate(prompts):
+                    eng.add_request(p, key=sampling.key(i), params=(
+                        SamplingParams(temperature=0.8 * (i < 6),
+                                       seed=i if i < 4 else None)))
+                profiled("serve_sampled", "decode_step", lambda: [
+                    eng.step(sampling.key(100 + s)) for s in range(3)], 3)
+            del out, k_sched, k_eng, r_sched
+            gc.collect()
+            torch.cuda.empty_cache()
+
+    def prefix_hit_vs_cold(path, arch, params, serve_kw, shared, chunk):
+        """Two prompts sharing ``shared`` tokens (a multiple of the
+        buckets' least, 8), one request at a time in slot 0, chunks of
+        ``chunk`` tokens: with the prefix cache the second adopts the
+        shared prefix, and both streams equal those of an engine without
+        the cache. Through the kernel, its launches counted."""
+        v = arch.vocab_size
+        head = [int(t) for t in rng.integers(0, v, shared)]
+        prompts = [head + [int(t) for t in rng.integers(0, v, n)]
+                   for n in (5, 3)]
+        fwd = per_forward(arch)
+        reset_counts()
+        runs, dispatches = {}, 0
+        for cache in (None, 1 << 28):
+            eng = Engine(arch, params, ServeConfig(
+                batch_slots=SLOTS, prefix_cache_bytes=cache, **serve_kw),
+                device=dev)
+            streams, adopted, prefill_ms = [], [], []
+            for p in prompts:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                slot = eng.begin_request(p)
+                adopted.append(eng.adopted_prefix(slot))
+                while eng.prefill_remaining(slot):
+                    eng.advance_prefill(slot, max_tokens=chunk)
+                eng.finish_prefill(slot)
+                torch.cuda.synchronize()
+                prefill_ms.append(1e3 * (time.perf_counter() - t0))
+                for _ in range(7):
+                    eng.step()
+                streams.append(eng.tokens[slot][len(p):])
+                eng.release_slot(slot)
+            dispatches += (eng.stats["prefill_dispatches"]
+                           + eng.stats["decode_steps"])
+            runs[cache] = dict(streams=streams, adopted=adopted,
+                               prefill_ms=prefill_ms,
+                               prefill_tokens=eng.stats["prefill_tokens"],
+                               cache_stats=(eng.prefix_cache.stats
+                                            if eng.prefix_cache else None))
+            del eng
+        launches = grmac_matmul_cuda.launches
+        launches_by_path[f"{path}_prefix_hit"] = launches
+        cold, warm = runs[None], runs[1 << 28]
+        same = cold["streams"] == warm["streams"]
+        emit({"phase": f"{path}_prefix_hit", "arch": arch.name,
+              "shared_tokens": shared, "chunk": chunk,
+              "prompt_lens": [len(p) for p in prompts],
+              "streams_equal": same, "adopted": warm["adopted"],
+              "cold_prefill_ms": cold["prefill_ms"],
+              "hit_prefill_ms": warm["prefill_ms"],
+              "cold_prefill_tokens": cold["prefill_tokens"],
+              "hit_prefill_tokens": warm["prefill_tokens"],
+              "cache_stats": warm["cache_stats"],
+              "kernel_launches": launches,
+              "expected_launches": fwd * dispatches, "card": card})
+        if not same or warm["adopted"] != [0, shared]:
+            fail(f"{path}: a prefix hit's stream differs from a cold "
+                 f"prefill's, or it adopted {warm['adopted']} tokens, not "
+                 f"[0, {shared}]")
+        if launches != fwd * dispatches:
+            fail(f"{path}_prefix_hit: {launches} kernel launches for "
+                 f"{dispatches} dispatches")
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # paper-cim-120m, the first slice's path, as before
     params = init_params(paper, SEED, device=dev)
     prompts = prompts_of(paper, (5, 8, 12, 17, 24, 33, 40, 60))
@@ -997,10 +1277,17 @@ def main() -> int:
     if not pj_ok:
         fail("serve: the engine's pJ/token differs from energy_report's or "
              "lies outside the Monte-Carlo tolerance of the record")
-    del engine, last, params, logits_k, logits_r, logits_p
+    del engine, last, logits_k, logits_r, logits_p
     gc.collect()
     torch.cuda.empty_cache()
     seconds("serve")
+
+    serve_scheduler(paper, params, pj)
+    prefix_hit_vs_cold("serve", paper, params, dict(max_ctx=512), 64, 16)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds("serve_scheduler")
 
     def with_grmac(arch):
         # the default design: row, FP6_E3M2 x FP4_E2M1, n_r 32, ENOB 8
@@ -1035,6 +1322,9 @@ def main() -> int:
          dict(max_ctx=512, prefill_bucket_max=8),
          {"reduced": {"n_layers": [64, grok_layers]}}),
     )
+    # (shared tokens, chunk) of the prefix-hit check, with the weights on
+    # the card: gemma3's shared prefix wraps its 512-slot rings
+    PREFIX_HIT = {"serve_gemma3": (528, 16), "serve_mamba2": (32, 32)}
     for path, name, lens, n_steps, serve_kw, extra in families:
         arch = with_grmac(archs[name])
         info_kw = dict(head_temporary(arch, serve_kw["prefill_bucket_max"]),
@@ -1053,6 +1343,9 @@ def main() -> int:
               "init_seconds": time.perf_counter() - t0, **info_kw})
         serve_path(path, arch, params, prompts_of(arch, lens), n_steps,
                    serve_kw, extra=info_kw)
+        if path in PREFIX_HIT:
+            prefix_hit_vs_cold(path, arch, params, serve_kw,
+                               *PREFIX_HIT[path])
         del params
         gc.collect()
         torch.cuda.empty_cache()

@@ -1,8 +1,27 @@
-"""Serving for the port: the batched engine, its request types and the
-energy report."""
+"""Serving for the port: the slot ``Engine``, the ``PrefixCache`` beside
+it and the continuous-batching ``Scheduler`` above both, with the request
+types, the per-lane sampler (``serving.sampling``) and the energy report.
+Speculative decode is not ported yet."""
 from repro_torch.serving.engine import (Engine, ServeConfig, StepResult,
                                        energy_report)
 from repro_torch.serving.params import RequestOutput, SamplingParams
+from repro_torch.serving.prefix_cache import PrefixCache
+from repro_torch.serving.scheduler import (
+    Request,
+    Scheduler,
+    SchedulerConfig,
+    StaticBatchScheduler,
+    StepClock,
+    run_closed_loop,
+    run_open_loop,
+    synth_shared_prefix_traffic,
+    synth_traffic,
+)
 
-__all__ = ["Engine", "ServeConfig", "StepResult", "SamplingParams",
-           "RequestOutput", "energy_report"]
+__all__ = [
+    "Engine", "ServeConfig", "StepResult", "energy_report", "PrefixCache",
+    "RequestOutput", "SamplingParams",
+    "Request", "Scheduler", "SchedulerConfig", "StaticBatchScheduler",
+    "StepClock", "run_open_loop", "run_closed_loop", "synth_traffic",
+    "synth_shared_prefix_traffic",
+]

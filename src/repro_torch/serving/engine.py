@@ -1,5 +1,5 @@
 """Batched serving engine: slot-based continuous batching over a fixed-size
-decode batch with chunked, length-bucketed prefill and greedy decode.
+decode batch with chunked, length-bucketed prefill and per-lane sampling.
 
 The port's counterpart of ``repro.serving.engine``; it replays exactly the
 reference's batches, because the CIM pre-scale couples the lanes of a
@@ -18,14 +18,33 @@ token) is the equivalence oracle.
 Decode (``step``) runs the whole batch; lanes that are not active compute
 like the others and keep their caches (the reference's per-lane merge,
 done here by restoring the one KV or ring row a decode writes, and the
-whole lane of an RG-LRU or SSM state and conv window). The host sees
-exactly one device→host transfer per step, a ``(batch_slots,)`` int32
-array of ids, and one per first-token selection, all through ``_fetch``.
+whole lane of an RG-LRU or SSM state and conv window). Token selection
+stays on the device: greedy argmax, or, when some active lane samples,
+``serving.sampling.select`` over the whole batch (lanes at temperature 0
+take the argmax there too). The host sees exactly one device→host
+transfer per step, a ``(batch_slots,)`` int32 array of ids, and one per
+first-token selection, all through ``_fetch``.
+
+Sampling contract (the reference's): a lane samples iff its temperature
+is above 0 and it has entropy, the caller's ``key`` (a
+``serving.sampling`` key, a Python int) or its own
+``SamplingParams.seed``. ``add_request`` / ``finish_prefill`` with a
+positive temperature, no key and no seed warn (``UserWarning``) and take
+the argmax; ``step`` applies the same rule silently. A seeded lane draws
+from ``fold_in(key(seed), event)``, whatever its slot, the caller's key
+or the other traffic.
 
 Incremental prefill: ``begin_request`` claims a slot, ``advance_prefill``
 runs one bucketed chunk, ``finish_prefill`` selects the first token and
 activates the lane; ``add_request`` is their blocking composition.
 ``release_slot`` frees a lane; ``free_slots`` counts claimable ones.
+
+Prefix cache (``serving.prefix_cache``): with
+``ServeConfig.prefix_cache_bytes`` set (or a ``PrefixCache`` passed in),
+``begin_request`` copies the longest cached prefix into the claimed lane
+and queues only the suffix, and ``advance_prefill`` ends chunks on cache
+boundaries and stores a copy of the lane at each; nothing crosses to the
+host.
 
 Weights: the engine packs every CIM site's weight once at construction
 (``models.pack_params``: the per-call pre-scale and quantization of the
@@ -52,12 +71,13 @@ read them pays no trace and no Monte-Carlo solve. The solve draws on the
 engine's device. The ledger traces its own ``meta`` tree, never the
 served (packed) weights.
 
-Not ported yet: sampling (``temperature > 0`` raises), the prefix cache
-and the speculative-decode seams.
+Not ported yet: the speculative-decode seams (ROADMAP item 8c); the
+``stats`` counters of speculative dispatches stay at 0.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Callable, Dict, List, Optional, Union
 
 import numpy as np
@@ -68,7 +88,10 @@ from repro_torch.core import costs
 from repro_torch.core.device import require_full_f32, resolve_device
 from repro_torch.models import (decode_step, init_cache,
                                 pack_params, prefill_step)
+from repro_torch.serving import sampling
 from repro_torch.serving.params import RequestOutput, SamplingParams
+from repro_torch.serving.prefix_cache import (PrefixCache, restore_slot,
+                                              snapshot_slot)
 
 __all__ = ["ServeConfig", "Engine", "StepResult", "SamplingParams",
            "RequestOutput", "energy_report"]
@@ -114,21 +137,38 @@ class ServeConfig:
     prefill_mode: str = "bucketed"
     prefill_bucket_min: int = 8
     prefill_bucket_max: int = 1024
+    # byte budget of the prefix cache (bucketed prefill only); None: off
+    prefix_cache_bytes: Optional[int] = None
 
 
 class Engine:
     def __init__(self, arch: ArchConfig, params, cfg: ServeConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, *,
+                 prefix_cache: Optional[PrefixCache] = None):
         self.device = resolve_device(device)
         if self.device.type == "cuda":
             require_full_f32()
         if arch.input_mode != "tokens":
             raise ValueError("the engine serves token models")
-        if cfg.temperature > 0:
-            raise NotImplementedError(
-                "sampling (temperature > 0) is not ported yet")
         if cfg.prefill_mode not in ("bucketed", "token"):
             raise ValueError(f"unknown prefill_mode {cfg.prefill_mode!r}")
+        # an explicit cache may be shared by engines; prefix_cache_bytes
+        # builds a private one. Its chunk must be the smallest bucket, so
+        # every stored boundary is a length the buckets serve
+        if prefix_cache is None and cfg.prefix_cache_bytes is not None:
+            prefix_cache = PrefixCache(cfg.prefix_cache_bytes,
+                                       chunk_tokens=cfg.prefill_bucket_min)
+        if prefix_cache is not None:
+            if cfg.prefill_mode != "bucketed":
+                raise ValueError(
+                    "prefix cache requires prefill_mode='bucketed' (the "
+                    "token path replays whole prompts)")
+            if prefix_cache.chunk != cfg.prefill_bucket_min:
+                raise ValueError(
+                    f"prefix cache chunk {prefix_cache.chunk} != "
+                    f"prefill_bucket_min {cfg.prefill_bucket_min}: cached "
+                    "boundaries would not align with the buckets")
+        self.prefix_cache = prefix_cache
         if cfg.cim_backend is not None:
             arch = arch.replace(cim=arch.cim.with_backend(cfg.cim_backend))
         self.arch = arch
@@ -147,6 +187,14 @@ class Engine:
         self._eos = np.full(b, -1, np.int64)
         self._max_toks = np.full(b, -1, np.int64)
         self._emitted = np.zeros(b, np.int64)
+        # per-slot temperature, seed (-1: unseeded) and sampling-event
+        # count, and speculative lookahead (-1: default; not ported yet)
+        self._temp = np.full(b, cfg.temperature, np.float32)
+        self._seed = np.full(b, -1, np.int64)
+        self._ctr = np.zeros(b, np.int64)
+        self._spec_k = np.full(b, -1, np.int64)
+        # prompt tokens the slot's occupant adopted from the prefix cache
+        self._adopted = np.zeros(b, np.int64)
         self._finish_reason: List[Optional[str]] = [None] * b
         # slots that have hosted a request (zeroed before reuse)
         self._dirty = np.zeros(b, bool)
@@ -157,8 +205,13 @@ class Engine:
         # slots completed outside step() (first token == EOS, or a one-token
         # cap), surfaced through the next StepResult.finished
         self._pending_finished: List[int] = []
+        # prefill_tokens counts the prompt tokens dispatched (the suffix
+        # only, under a prefix hit); the speculative counters stay 0
         self.stats = {"prefill_dispatches": 0, "decode_steps": 0,
-                      "prefill_tokens": 0}
+                      "prefill_tokens": 0, "prefix_hit_tokens": 0,
+                      "draft_dispatches": 0, "verify_dispatches": 0,
+                      "repair_dispatches": 0, "spec_steps": 0,
+                      "spec_tokens": 0}
         # the decode-phase energy report, priced on first request
         self._energy: Optional[dict] = None
 
@@ -169,23 +222,27 @@ class Engine:
         return torch.tensor(host_state, device=self.device)
 
     # ------------------------------------------------------------ prefill
-    def add_request(self, prompt: List[int], *,
+    def add_request(self, prompt: List[int], *, key: Optional[int] = None,
                     params: Optional[SamplingParams] = None) -> int:
         """Prefill a free slot, select the first output token from the
-        prefill logits, and return the slot id. A first token that hits
-        the request's EOS (or a one-token cap) finishes the request at
-        once; it is reported by the next ``step``."""
+        prefill logits (sampled under the sampling contract: pass ``key``
+        when the temperature is above 0 and the request has no seed), and
+        return the slot id. A first token that hits the request's EOS (or
+        a one-token cap) finishes the request at once; it is reported by
+        the next ``step``."""
         slot = self.begin_request(prompt, params=params)
         if self.cfg.prefill_mode == "token":
+            sample = self._resolve_sampling(key, slot)
             self._pending_prompt.pop(slot, None)
             for t in prompt[:-1]:
                 self._advance_slot(slot, t)
             # the final dispatch's ids ARE the last-valid-token selection
-            self._adopt_first_token(slot, self._advance_slot(slot, prompt[-1]))
+            self._adopt_first_token(slot, self._advance_slot(
+                slot, prompt[-1], sample=sample, key=key))
         else:
             while self.prefill_remaining(slot):
                 self.advance_prefill(slot)
-            self.finish_prefill(slot)
+            self.finish_prefill(slot, key=key)
         return slot
 
     def begin_request(self, prompt: List[int], *,
@@ -201,11 +258,6 @@ class Engine:
             raise ValueError(
                 f"prompt of {len(prompt)} tokens needs max_ctx > "
                 f"{len(prompt)} (got {self.cfg.max_ctx}) to decode")
-        temp = (self.cfg.temperature if params.temperature is None
-                else params.temperature)
-        if temp > 0:
-            raise NotImplementedError(
-                "sampling (temperature > 0) is not ported yet")
         free = np.where(~self.active & ~self._prefilling)[0]
         if len(free) == 0:
             raise RuntimeError("no free slots")
@@ -223,12 +275,36 @@ class Engine:
         self._max_toks[slot] = (-1 if params.max_tokens is None
                                 else int(params.max_tokens))
         self._emitted[slot] = 0
+        self._temp[slot] = (self.cfg.temperature
+                            if params.temperature is None
+                            else params.temperature)
+        self._seed[slot] = -1 if params.seed is None else int(params.seed)
+        self._ctr[slot] = 0
+        self._spec_k[slot] = (-1 if params.spec_k is None
+                              else int(params.spec_k))
         self._finish_reason[slot] = None
+        self._adopted[slot] = 0
+        if self.prefix_cache is not None:
+            hit = self.prefix_cache.lookup(prompt)
+            if hit is not None:
+                # copy the cached prefix into the (zeroed) lane; only the
+                # suffix is prefilled, from cache index p
+                p, snap = hit
+                restore_slot(self.cache, slot, p, snap)
+                self.lengths[slot] = p
+                self._pending_prompt[slot] = list(prompt[p:])
+                self._adopted[slot] = p
+                self.stats["prefix_hit_tokens"] += p
         return slot
 
     def prefill_remaining(self, slot: int) -> int:
         """Prompt tokens of ``slot`` not yet prefilled (0 once drained)."""
         return len(self._pending_prompt.get(slot, ()))
+
+    def adopted_prefix(self, slot: int) -> int:
+        """Prompt tokens the slot's occupant adopted from the prefix cache
+        at ``begin_request`` (0: a cold prefill)."""
+        return int(self._adopted[slot])
 
     def advance_prefill(self, slot: int,
                         max_tokens: Optional[int] = None) -> int:
@@ -242,21 +318,42 @@ class Engine:
             take = min(take, int(max_tokens))
         if take <= 0:
             return 0
+        pc = self.prefix_cache
+        if pc is not None and take < len(rem):
+            # a further chunk follows anyway: end this one on a cache
+            # boundary (snapshots exist only there); it pads to a bucket
+            # no larger than before
+            aligned = take - (int(self.lengths[slot]) + take) % pc.chunk
+            if aligned >= 1:
+                take = aligned
         self._pending_logits[slot] = self._prefill_chunk(slot, rem[:take])
         del rem[:take]
+        if pc is not None:
+            done = int(self.lengths[slot])
+            if done > 0 and done % pc.chunk == 0:
+                # capture the boundary now (a recurrent state at an
+                # interior length cannot be recovered later); insert()
+                # skips the copy when the boundary is stored already
+                pc.insert(self.tokens[slot][:done],
+                          lambda: snapshot_slot(self.cache, slot, done,
+                                                self.arch.blocks()))
         return take
 
-    def finish_prefill(self, slot: int) -> int:
-        """Select the first output token (greedy) from the final chunk's
-        logits and activate the lane (or finish it at once)."""
+    def finish_prefill(self, slot: int, key: Optional[int] = None) -> int:
+        """Select the first output token from the final chunk's logits and
+        activate the lane (or finish it at once). A positive temperature
+        without ``key`` or seed warns and takes the argmax."""
         if self.prefill_remaining(slot):
             raise RuntimeError(
                 f"slot {slot}: {self.prefill_remaining(slot)} prompt "
                 "tokens still pending — drain with advance_prefill first")
+        sample = self._resolve_sampling(key, slot)
         logits = self._pending_logits.pop(slot)
         del self._pending_prompt[slot]
-        ids = torch.argmax(logits, dim=-1).to(torch.int32)
-        first = int(self._fetch(ids)[slot])
+        lane = np.zeros(self.cfg.batch_slots, bool)
+        lane[slot] = True
+        first = int(self._fetch(self._choose(logits, sample, key,
+                                             lane))[slot])
         self._adopt_first_token(slot, first)
         return first
 
@@ -294,6 +391,48 @@ class Engine:
         """Slots claimable right now (neither decoding nor mid-prefill)."""
         return int(np.sum(~self.active & ~self._prefilling))
 
+    # ----------------------------------------------------------- sampling
+    def _resolve_sampling(self, key: Optional[int], slot: int) -> bool:
+        """Whether ``slot``'s first token is sampled: its temperature is
+        above 0 and it has a key or a seed. Without either it warns and
+        falls back to the argmax."""
+        if self._temp[slot] <= 0:
+            return False
+        if self._seed[slot] >= 0:
+            return True
+        if key is None:
+            warnings.warn(
+                "temperature > 0 but no sampling key passed: falling back "
+                "to greedy argmax for this token. Pass key= to sample "
+                "(Engine.step applies the same key-gated rule), or set "
+                "SamplingParams.seed for a self-seeded request.",
+                UserWarning, stacklevel=3)
+            return False
+        return True
+
+    def _effective_temps(self, key: Optional[int]) -> np.ndarray:
+        """Per-lane temperatures in effect for one sampling event: a lane
+        without entropy (no key, no seed) takes the argmax."""
+        if key is not None:
+            return self._temp.copy()
+        return np.where(self._seed >= 0, self._temp,
+                        0.0).astype(np.float32)
+
+    def _choose(self, logits: torch.Tensor, sample: bool,
+                key: Optional[int], lanes: np.ndarray) -> torch.Tensor:
+        """(B,) int32 ids on the device from (B, V) logits: the argmax, or
+        the per-lane sampled selection, whose event counts then advance in
+        the seeded lanes among ``lanes``."""
+        if not sample:
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        eff = self._effective_temps(key)
+        keys = sampling.lane_keys(key if key is not None else 0,
+                                  self._seed, self._ctr)
+        ids = sampling.select(logits, self._snapshot(eff),
+                              self._snapshot(keys))
+        self._ctr[lanes & (eff > 0) & (self._seed >= 0)] += 1
+        return ids
+
     def _reset_slot_state(self, slot: int) -> None:
         """Zero one lane's cache before a freed slot hosts a new request:
         its KV rows and rings, recurrent states and conv windows (every
@@ -327,31 +466,34 @@ class Engine:
 
     def _decode(self, toks: np.ndarray, mask: np.ndarray) -> torch.Tensor:
         """One decode dispatch over the whole batch; lanes outside ``mask``
-        keep their caches. Returns the greedy ids (B,) int32 on the
-        device."""
+        keep their caches. Returns the logits (B, V) on the device."""
         logits, self.cache = decode_step(
             self.params, self._snapshot(toks.astype(np.int64)), self.arch,
             self.cache, self._snapshot(self.lengths),
             active=self._snapshot(mask))
-        return torch.argmax(logits, dim=-1).to(torch.int32)
+        return logits
 
-    def _advance_slot(self, slot: int, token: int) -> int:
+    def _advance_slot(self, slot: int, token: int, sample: bool = False,
+                      key: Optional[int] = None) -> int:
         """Token-by-token prefill: a batched decode with every lane but
-        ``slot`` frozen. Returns this slot's greedy next token (the first
-        generated token on the final prompt token)."""
+        ``slot`` frozen. Returns this slot's next token, sampled when
+        ``sample`` (the first generated token on the final prompt
+        token)."""
         toks = np.zeros((self.cfg.batch_slots, 1), np.int32)
         toks[slot, 0] = token
         mask = np.zeros(self.cfg.batch_slots, bool)
         mask[slot] = True
-        ids = self._decode(toks, mask)
+        ids = self._choose(self._decode(toks, mask), sample, key, mask)
         self.lengths[slot] += 1
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_tokens"] += 1
         return int(self._fetch(ids)[slot])
 
     # ------------------------------------------------------------ decode
-    def step(self) -> StepResult:
-        """One greedy decode step for every active slot.
+    def step(self, key: Optional[int] = None) -> StepResult:
+        """One decode step for every active slot: lanes with a positive
+        temperature and a key (``key``) or a seed sample, the others take
+        the argmax.
 
         Returns a ``StepResult`` (slot id -> token) whose ``finished`` lists
         the slots freed this step — EOS, ``max_tokens``, or no context left
@@ -365,7 +507,10 @@ class Engine:
                    for s in pending]
         if not self.active.any():
             return StepResult({}, pending, self._pj_per_token, outputs)
-        ids = self._fetch(self._decode(self._last_host[:, None], self.active))
+        sample = bool((self._effective_temps(key)[self.active] > 0).any())
+        ids = self._fetch(self._choose(
+            self._decode(self._last_host[:, None], self.active), sample, key,
+            self.active))
         act = np.where(self.active)[0]
         out = {}
         for s in act:

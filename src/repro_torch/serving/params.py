@@ -2,21 +2,27 @@
 ``RequestOutput`` (copies of ``repro.serving.params``).
 
 ``SamplingParams`` is the way per-request knobs enter
-``Engine.add_request``/``begin_request``. Every field defaults to "inherit
-the engine default", so ``SamplingParams()`` is always a valid no-op:
+``Engine.add_request``/``begin_request`` and ``Scheduler.submit``. Every
+field defaults to "inherit the engine default", so ``SamplingParams()``
+is always a valid no-op:
 
 * ``temperature`` — per-request sampling temperature; ``None`` inherits
-  ``ServeConfig.temperature``. The port decodes greedily only so far: a
-  request whose temperature resolves above 0 is refused.
-* ``seed`` — per-request PRNG seed (for sampling, not ported yet).
+  ``ServeConfig.temperature``. ``0.0`` forces greedy argmax for this
+  request even inside a sampled batch (selection is per lane).
+* ``seed`` — per-request sampling seed. A seeded request draws its lane
+  key as ``fold_in(key(seed), event_counter)`` (``serving.sampling``), so
+  its sampled stream is the same whatever slot it lands in, whatever keys
+  the caller passes and whatever traffic shares the batch; it samples
+  even when the caller passes no key (unseeded lanes draw from the
+  caller's per-step key).
 * ``eos_id`` — per-request stop token; ``None`` inherits
   ``ServeConfig.eos_id``.
 * ``max_tokens`` — cap on *generated* tokens (including the
   prefill-selected first one). The lane is freed with finish reason
   ``"length"`` the step it reaches the cap. ``None`` decodes until EOS /
   context exhaustion.
-* ``spec_k`` — speculative-decode lookahead (speculative decode is not
-  ported yet; ignored by ``Engine.step``).
+* ``spec_k`` — speculative-decode lookahead: speculative decode not
+  ported yet (ROADMAP item 8c); ignored by ``Engine.step``.
 
 ``RequestOutput`` is the typed per-request slice of a decode iteration;
 ``StepResult.outputs`` carries one per live request: the tokens emitted

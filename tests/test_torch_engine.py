@@ -153,33 +153,73 @@ def test_bucketed_prefill_equals_token_prefill_in_the_port(params):
 
 
 def test_one_fetch_per_step_and_per_first_token(params, monkeypatch):
+    """One (batch_slots,) fetch per decode step and per first-token
+    selection: greedy, sampled (seeded and keyed lanes, a greedy lane
+    beside them) and driven by the scheduler with the prefix cache on."""
+    from repro_torch.serving import sampling
+    from repro_torch.serving.scheduler import (Scheduler, SchedulerConfig,
+                                               StepClock, run_open_loop,
+                                               synth_traffic)
+
     _, tp = params
+    fetched = []
+    real = teng.Engine._fetch
+    monkeypatch.setattr(teng.Engine, "_fetch", staticmethod(
+        lambda ids: fetched.append(tuple(ids.shape)) or real(ids)))
     eng = teng.Engine(TARCH, tp, teng.ServeConfig(batch_slots=2, max_ctx=64,
                                                   prefill_bucket_max=8),
                       device="cpu")
-    fetched = []
-    real = eng._fetch
-    monkeypatch.setattr(eng, "_fetch",
-                        lambda ids: fetched.append(tuple(ids.shape))
-                        or real(ids))
     eng.add_request(_prompt(20, 19))           # three chunks, one selection
     assert fetched == [(2,)]
     for n in range(1, 4):
         eng.step()
         assert fetched == [(2,)] * (n + 1)
-    assert eng.stats == {"prefill_dispatches": 3, "decode_steps": 3,
-                         "prefill_tokens": 19}
+    assert {k: v for k, v in eng.stats.items() if v} == {
+        "prefill_dispatches": 3, "decode_steps": 3, "prefill_tokens": 19}
+
+    fetched.clear()
+    eng = teng.Engine(TARCH, tp, teng.ServeConfig(batch_slots=3, max_ctx=64),
+                      device="cpu")
+    eng.add_request(_prompt(21, 5), params=TorchSP(temperature=0.9, seed=1))
+    eng.add_request(_prompt(22, 7), params=TorchSP(temperature=0.7),
+                    key=sampling.key(2))
+    eng.add_request(_prompt(23, 4))
+    for i in range(4):
+        eng.step(sampling.key(10 + i))
+    assert fetched == [(3,)] * 7
+    assert list(eng._ctr) == [5, 0, 0]         # only the seeded lane counts
+
+    fetched.clear()
+    clock = StepClock()
+    eng = teng.Engine(TARCH, tp, teng.ServeConfig(
+        batch_slots=2, max_ctx=64, prefix_cache_bytes=1 << 24), device="cpu")
+    sched = Scheduler(eng, SchedulerConfig(prefill_token_budget=8,
+                                           preempt_age=6.0), clock=clock.now)
+    firsts = []
+    real_finish = eng.finish_prefill
+    monkeypatch.setattr(eng, "finish_prefill", lambda slot, key=None: (
+        firsts.append(slot) or real_finish(slot, key=key)))
+    traffic = synth_traffic(6, 0.8, seed=3, vocab_size=TARCH.vocab_size,
+                            prompt_len=(4, 20), out_len=(2, 6))
+    run_open_loop(sched, traffic, tick=clock.tick)
+    assert sched.stats["preempted"] >= 1
+    assert fetched == [(2,)] * (eng.stats["decode_steps"] + len(firsts))
 
 
 def test_engine_refuses_what_is_not_ported(params):
+    """Speculative decode is not ported: the scheduler refuses ``spec=``
+    and the engine has none of the reference's speculative seams; the
+    engine still refuses a prompt that cannot decode and a full batch."""
+    from repro_torch.serving.scheduler import Scheduler
+
     _, tp = params
-    with pytest.raises(NotImplementedError, match="sampling"):
-        teng.Engine(TARCH, tp, teng.ServeConfig(temperature=0.7),
-                    device="cpu")
     eng = teng.Engine(TARCH, tp, teng.ServeConfig(batch_slots=1, max_ctx=16),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="sampling"):
-        eng.add_request([1, 2], params=TorchSP(temperature=1.0))
+    with pytest.raises(NotImplementedError, match="8c"):
+        Scheduler(eng, spec=object())
+    for seam in ("spec_snapshot", "spec_restore", "draft_step",
+                 "verify_chunk", "verify_chunk_sampled", "repair_chunk"):
+        assert hasattr(jeng.Engine, seam) and not hasattr(eng, seam)
     with pytest.raises(ValueError, match="max_ctx"):
         eng.add_request(list(range(16)))
     eng.add_request([1, 2, 3])

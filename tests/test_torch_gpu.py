@@ -6,7 +6,10 @@ the card (every block kind, MoE FFNs), and the cached paths on the card
 against the CPU (weights drawn on the CPU and moved: the two devices'
 generators draw different streams), and the energy model with a card
 present (the paper's ADC claims on a CUDA generator, the ledger's ``meta``
-trace, the engine's pJ/token, ``grmac_matmul`` refusing ``meta``).
+trace, the engine's pJ/token, ``grmac_matmul`` refusing ``meta``), the
+sampler on the card against the CPU, prefix-cache snapshots on the card,
+and the scheduler's streams through the kernel against the plain
+version's.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. This file imports no JAX, so it also runs on the
@@ -572,3 +575,119 @@ def test_meta_trace_and_engine_energy_with_a_card():
         dispatch.grmac_matmul(torch.empty((8, 64), device="meta"),
                               torch.empty((64, 16), device="meta"),
                               fmt_x=FP6_E3M2, fmt_w=FP4_E2M1)
+
+
+# ------------------------------------------------------------- serving
+def _chi2_p(counts, probs):
+    """Chi-square p-value by the regularized upper incomplete gamma."""
+    exp = probs / probs.sum() * counts.sum()
+    stat = float(((counts - exp) ** 2 / exp).sum())
+    df = torch.tensor((len(counts) - 1) / 2.0, dtype=torch.float64)
+    return float(torch.special.gammaincc(df, torch.tensor(
+        stat / 2.0, dtype=torch.float64)))
+
+
+@pytest.mark.gpu
+def test_sampler_on_the_card_equals_the_cpu():
+    """2**16 draws on fixed logits (V = 64, seeds 0-1023, 64 events each)
+    on the card and on the CPU: the uniforms are bitwise equal (an integer
+    hash), the ids equal but for ulp ties of log, and both histograms
+    pass chi-square against softmax(logits / T) at p >= 0.001."""
+    _need_card()
+    from repro_torch.serving import sampling
+
+    v, t = 64, 0.8
+    logits = torch.linspace(-1.5, 1.5, v).repeat(1024, 1)
+    temps = torch.full((1024,), t)
+    seeds = list(range(1024))
+    ids = {"cpu": [], "cuda": []}
+    for event in range(64):
+        keys = torch.tensor(sampling.lane_keys(0, seeds, [event] * 1024))
+        if event == 0:
+            assert torch.equal(sampling.uniform(keys.cuda(), v).cpu(),
+                               sampling.uniform(keys, v))
+        for dev in ids:
+            ids[dev].append(sampling.select(logits.to(dev), temps.to(dev),
+                                            keys.to(dev)).cpu())
+    cpu, card = torch.cat(ids["cpu"]), torch.cat(ids["cuda"])
+    assert float((cpu == card).double().mean()) >= 0.999
+    probs = torch.softmax(torch.linspace(-1.5, 1.5, v).double() / t, 0)
+    for got in (cpu, card):
+        counts = torch.bincount(got.long(), minlength=v).double()
+        assert _chi2_p(counts, probs) >= 1e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["qwen2-1.5b", "recurrentgemma-9b",
+                                  "mamba2-1.3b"])
+def test_snapshot_round_trip_on_the_card_does_not_alias(name):
+    """A snapshot on the card is a copy: the lane's next decode and its
+    zeroing leave it unchanged, and a restore into another lane writes
+    back exactly the captured rows, rings and states."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.serving.prefix_cache import restore_slot, snapshot_slot
+
+    arch = get_config(name).reduced()
+    eng = Engine(arch, init_params(arch, seed=0),
+                 ServeConfig(batch_slots=2, max_ctx=64))
+    slot = eng.begin_request(list(range(1, 18)))
+    while eng.prefill_remaining(slot):
+        eng.advance_prefill(slot, max_tokens=8)
+    kinds = arch.blocks()
+    snap = snapshot_slot(eng.cache, slot, 16, kinds)
+    kept = [{k: t.clone() for k, t in layer.items()}
+            for layer in snap["layers"]]
+    assert all(t.is_cuda for layer in snap["layers"] for t in layer.values())
+    eng.finish_prefill(slot)
+    eng.step()
+    eng._reset_slot_state(slot)
+    for layer, was in zip(snap["layers"], kept):
+        assert all(torch.equal(t, was[k]) for k, t in layer.items())
+    restore_slot(eng.cache, 1, 16, snap)
+    back = snapshot_slot(eng.cache, 1, 16, kinds)
+    for layer, was in zip(back["layers"], kept):
+        assert all(torch.equal(t, was[k]) for k, t in layer.items())
+
+
+@pytest.mark.gpu
+def test_scheduler_streams_through_the_kernel_equal_the_plain_version():
+    """The reduced paper config on the card under the scheduler (budget,
+    preemption, prefix cache), sampled and greedy lanes: the kernel's run
+    and the plain version's give equal streams and policy metrics."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import (Engine, SamplingParams, Scheduler,
+                                     SchedulerConfig, ServeConfig, StepClock,
+                                     sampling, synth_traffic)
+
+    arch = get_config("paper-cim-120m").reduced()
+    params = init_params(arch, seed=0)
+    traffic = synth_traffic(10, 0.8, seed=0, vocab_size=arch.vocab_size,
+                            prompt_len=(8, 24), out_len=(3, 8))
+    runs = []
+    for backend in (None, "ref"):
+        clock = StepClock()
+        eng = Engine(arch, params, ServeConfig(
+            batch_slots=4, max_ctx=64, cim_backend=backend,
+            prefix_cache_bytes=1 << 24))
+        sched = Scheduler(eng, SchedulerConfig(prefill_token_budget=8,
+                                               preempt_age=10.0),
+                          clock=clock.now)
+        for i, t in enumerate(traffic):
+            sched.submit(t.prompt, arrival=0.0, params=SamplingParams(
+                max_tokens=t.max_new_tokens, temperature=0.8 * (i % 3 > 0),
+                seed=i if i % 3 == 1 else None))
+        key = sampling.key(0)
+        while not sched.idle():
+            key, sub = sampling.split(key)
+            sched.step(sub)
+            clock.tick()
+        m = sched.metrics()
+        runs.append(([r.generated for r in sched.requests],
+                     {k: v for k, v in m.items()
+                      if not k.endswith(("_ms", "_s"))}))
+    assert runs[0] == runs[1]

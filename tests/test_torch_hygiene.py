@@ -43,7 +43,7 @@ def test_forbidden_import_pattern():
 
 
 def test_importing_the_port_loads_no_jax():
-    code = ("import sys; import repro_torch.serving.engine, "
+    code = ("import sys; import repro_torch.serving, "
             "repro_torch.convert, repro_torch.kernels.grmac_matmul; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
