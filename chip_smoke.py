@@ -14,8 +14,7 @@ seconds:
             of the CPU's), and the cost ledgers of all 11 configs at full
             width traced on ``meta`` (decode, a 64-token prefill, the train
             forward), each phase's ops per token equal to
-            ``experiments/bench/e2e_energy_smoke.json``; the RG-LRU and SSM
-            configs' train phase waits for the training slice;
+            ``experiments/bench/e2e_energy_smoke.json``, all 33 phases;
 2. build    the GR-MAC kernel built from ``src/repro_torch/csrc`` (one
             nvcc per source, in parallel; registers / shared memory /
             spills per instance);
@@ -40,7 +39,9 @@ seconds:
             designs), gemma3-1b (M = 8 and 128) and grok-1-314b (M = 8 and
             64: attention, router, head), beside the least time
             the card could take with the weights at their stored bits and,
-            for comparison, as f32;
+            for comparison, as f32; and paper-cim-120m's train forward (M
+            = 8 x 256), where the kernel's per-call route also packs every
+            weight on every call (``pack_ms``);
 5. serve    one path per model, each from seeded random weights with every
             projection through GR-MAC row (FP6_E3M2 x FP4_E2M1, n_r 32,
             ENOB 8), 8 slots of greedy traffic, the launch counts set to 0
@@ -87,7 +88,34 @@ seconds:
             fetch a decode step and a first token; run 1 must preempt and
             hit the prefix cache; pJ/token equal to ``serve_energy``'s;
             then a profile of three sampled decode steps
-            (``serve_sampled`` in ``STEP_LAUNCHES``). Lines
+            (``serve_sampled`` in ``STEP_LAUNCHES``);
+5c. serve_spec  paper-cim-120m's weights under speculative decode
+            (``SpecDecoder``, k 4, the digital drafter; ``serve``'s 8
+            prompts, 6 greedy lanes and 2 seeded sampled ones), through
+            the kernel and the plain version: equal streams and counters
+            (spec steps and tokens, draft / verify / repair dispatches,
+            fetches), the kernel launched 85 times a prefill and a verify;
+            accepted tokens, wall ms and launches per spec step (the
+            latter equal to ``STEP_LAUNCHES``), and ``price_speculation``;
+            with the CIM path off, greedy speculative streams equal to
+            sequential decode's (``serve_spec_cim_off``);
+            in ``serve_mamba2``, the ``serve_mamba2_spec`` lines: the
+            ``Scheduler(spec=...)`` at full width with the served drafter
+            (``"self"``) and a site override (the SSM projections
+            digital), which forces partial acceptance, rollbacks and
+            repairs, each through the kernel and the plain version, equal
+            streams, counters and policy metrics;
+5d. train   paper-cim-120m trained at full width and depth (remat as
+            configured, batch 8 x 256, AdamW, warmup 1): step 0's loss and
+            gradients through the kernel (its per-call route) and through
+            the plain version (loss equal, gradients within
+            ``GRAD_RTOL``, deterministic algorithms on), then 4 steps
+            through the kernel with a falling loss, its time split
+            (forward, backward, optimizer), tokens/s, peak memory and a
+            profiled step; ``train_mamba2`` and ``train_recurrentgemma``:
+            one step each, kernel against plain version, in their serve
+            phases (mamba2 at full width and depth, batch 1 x 256;
+            recurrentgemma cut to 3 layers, batch 1 x 64). Lines
             ``*_prefix_hit``: for paper-cim-120m here, and gemma3-1b (a
             shared prefix past its 512-slot rings) and mamba2-1.3b in their
             serve phases, at full width, one request at a time: a prefix
@@ -152,10 +180,20 @@ MC_TOL = {"enob_uniform_16384": 0.0782, "enob_outliers_16384": 0.260,
 # serve_sampled: paper-cim-120m's step with 6 of 8 lanes sampling, the
 # greedy 1011 less the argmax and its cast (2), plus the sampler's 41: 29
 # for the counter hash over the (8, 32 000) tile, 12 for the Gumbel-max
-# and the per-lane choice
+# and the per-lane choice. serve_spec: a speculative step of paper-cim-120m
+# (k 4, the digital drafter, 2 of 8 lanes sampled): three draft dispatches
+# of 1009 (a decode step whose 85 projections are cuBLAS GEMMs, not an
+# absmax reduction and a GR-MAC launch each) and one sampled verify of 1144
+# (the chunked prefill over the 8-token bucket and the rejection rule on
+# the device); 3 x 1009 + 1144 = 4171, each part profiled alone
 STEP_LAUNCHES = {"serve": 1011, "serve_gemma3": 3008, "serve_mamba2": 3383,
                  "serve_recurrentgemma": 298, "serve_grok": 608,
-                 "serve_sampled": 1050}
+                 "serve_sampled": 1050, "serve_spec": 4171}
+# Gradients of one train step through the kernel against the plain version:
+# their forwards are bitwise equal, the backward is the same plain torch, so
+# any difference is the card's summation order; bound per tensor, relative
+# to its largest entry.
+GRAD_RTOL = 1e-5
 
 # H100 SXM data sheet (dense): HBM rate, bf16 tensor-core and f32 peaks.
 HBM_BYTES_S = 3.35e12
@@ -295,6 +333,24 @@ def per_forward(arch) -> int:
     return sum(p[3] for p in projections(arch))
 
 
+def _site(projection: str) -> str:
+    """The CIM site of a ``projections`` entry."""
+    for prefix, site in (("attn wo", "attn_o"), ("attn", "attn_qkv"),
+                         ("rglru", "rglru"), ("ssm", "ssm"),
+                         ("moe router", "moe_router"), ("lm head", "head")):
+        if projection.startswith(prefix):
+            return site
+    return "mlp"
+
+
+def grmac_per_forward(arch) -> int:
+    """Launches of the kernel in one forward of ``arch``: its projections
+    at the sites that resolve to GR-MAC (a speculative drafter may turn
+    some off)."""
+    return sum(p[3] for p in projections(arch)
+               if arch.cim.for_site(_site(p[0])).mode == "grmac")
+
+
 def grok_depth(arch) -> int:
     """The deepest cut of grok-1-314b whose bf16 weights fit on the card
     beside the plain-version oracle's largest moment, its LM head at M = 64
@@ -328,8 +384,7 @@ def energy_phase(dev, card: str) -> None:
     Then the ledgers of all 11 configs at full width, traced on ``meta``:
     decode (batch 1, ctx 128), a 64-token prefill and the train forward;
     each phase's ops per token must equal the committed energy smoke
-    record exactly. The RG-LRU and SSM configs' train forward is not
-    ported: their train phase is reported as waiting, not passed."""
+    record exactly, all 33 of them."""
     import torch
 
     from repro_torch.configs import get_config, list_configs
@@ -398,7 +453,7 @@ def energy_phase(dev, card: str) -> None:
               ("prefill", lambda a: costs.trace_prefill(a, bucket=64),
                lambda a: 64),
               ("train", costs.trace_train, costs.default_train_seq))
-    bad, waiting = [], []
+    bad = []
     for name in list_configs():
         arch = get_config(name)
         if not arch.cim.enabled:
@@ -406,14 +461,7 @@ def energy_phase(dev, card: str) -> None:
         row = {"phase": "energy_ledger", "arch": name, "card": card}
         for phase, trace, tokens in traces:
             t0 = time.perf_counter()
-            try:
-                ledger = trace(arch)
-            except NotImplementedError as e:
-                if phase != "train" or "training slice" not in str(e):
-                    raise
-                row[phase] = "waits for item 9 (the RG-LRU / SSM train forms)"
-                waiting.append(name)
-                continue
+            ledger = trace(arch)
             got = 2 * ledger.macs() / tokens(arch)
             want = smoke[name]["phases"][phase]["ops_per_token"]
             row[phase] = {"ops_per_token": got, "record": want,
@@ -423,11 +471,10 @@ def energy_phase(dev, card: str) -> None:
                 bad.append((name, phase, got, want))
         emit(row)
     emit({"phase": "energy_ledgers", "configs": len(list_configs()),
-          "phases_equal": 3 * len(list_configs()) - len(waiting) - len(bad),
-          "waiting": waiting, "mismatched": bad})
-    if bad or sorted(waiting) != ["mamba2-1.3b", "recurrentgemma-9b"]:
-        fail(f"energy: ledger op counts differ from the record {bad}, or "
-             f"unexpected phases wait {waiting}")
+          "phases_equal": 3 * len(list_configs()) - len(bad),
+          "waiting": [], "mismatched": bad})
+    if bad:
+        fail(f"energy: ledger op counts differ from the record {bad}")
 
 
 def main() -> int:
@@ -459,11 +506,13 @@ def main() -> int:
                                                   grmac_matmul_cuda)
     from repro_torch.kernels.ops import cim_matmul
     from repro_torch.kernels.packed import pack_weight, unpack_weight
+    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.models import (decode_step, forward, init_cache,
                                     init_params, pack_params, prefill_step,
-                                    to_device)
+                                    to_device, train_loss)
     from repro_torch.models import moe as moe_mod
     from repro_torch.serving import Engine, ServeConfig, energy_report
+    from repro_torch.tree import tree_leaves, tree_map
 
     dev = torch.device("cuda")
     smi = subprocess.run(
@@ -637,13 +686,17 @@ def main() -> int:
                             fmt_w=fmt_w, n_r=n_r, enob=enob,
                             granularity="row", backend="ref") * (sx * pw.sw)
 
-    def time_forward(path, arch, m, design):
+    def time_forward(path, arch, m, design, pack=False):
         """Times of one forward's row launches at M = m: each projection
-        shape, then the forward's sum weighted by launches per forward."""
+        shape, then the forward's sum weighted by launches per forward.
+        With ``pack``, also the per-call route's packing of each raw weight
+        (``pack_weight``: pre-scale, quantize, codes), which training pays
+        on every call."""
         # bound_ms split by the term that sets each launch's bound
         tot = {"ms": 0.0, "eager_loop_ms": 0.0, "plain_ms": 0.0,
                "bound_ms": 0.0, "bytes_bound_ms": 0.0,
-               "operations_bound_ms": 0.0, "f32_weight_bound_ms": 0.0}
+               "operations_bound_ms": 0.0, "f32_weight_bound_ms": 0.0,
+               "pack_ms": 0.0 if pack else None}
         shapes = {}               # projections of one shape timed once
         for name, k, n, per_fwd in projections(arch):
             names, count = shapes.get((k, n), ([], 0))
@@ -655,8 +708,15 @@ def main() -> int:
             copies = max(1, math.ceil(2 * 50e6 / (k * n / 2)))
             xs = [operands(m, k, n, fmt_w)[0] for _ in range(4)]
             amaxs = [torch.amax(torch.abs(x)) for x in xs]
-            ws = [pack_weight(torch.randn((k, n), generator=gen, device=dev),
-                              fmt_w, n_r) for _ in range(copies)]
+            raws = [torch.randn((k, n), generator=gen, device=dev)
+                    for _ in range(copies)]
+            ws = [pack_weight(w, fmt_w, n_r) for w in raws]
+            t_pack = None
+            if pack:
+                t_pack = cuda_ms(lambda i: pack_weight(
+                    raws[i % copies], fmt_w, n_r), 10)
+                tot["pack_ms"] += per_fwd * t_pack
+            del raws
 
             def call(i):
                 return grmac_matmul_cuda(xs[i % 4], ws[i % copies],
@@ -680,7 +740,7 @@ def main() -> int:
                   "ms": t_kernel, "eager_loop_ms": t_eager,
                   "plain_ms": t_plain, "bound_ms": b_ms, "bound_by": b_by,
                   "f32_weight_bound_ms": f32_ms, "library_ms": None,
-                  "card": card})
+                  "pack_ms": t_pack, "card": card})
             tot["ms"] += per_fwd * t_kernel
             tot["eager_loop_ms"] += per_fwd * t_eager
             tot["plain_ms"] = (None if t_plain is None or tot["plain_ms"]
@@ -709,6 +769,9 @@ def main() -> int:
             ("grok_decode", archs["grok-1-314b"], 8, None),
             ("grok_prefill", archs["grok-1-314b"], 64, None)):
         totals[key] = time_forward(key, arch, m, design)
+    # paper-cim-120m's train forward: batch 8 x seq 256 rows per projection
+    totals["train_forward"] = time_forward("train_forward", paper, 8 * 256,
+                                           None, pack=True)
     seconds("timing")
 
     # -------------------------------------------------------------- serve
@@ -721,7 +784,8 @@ def main() -> int:
     def profiled(path, what, fn, count):
         """``fn`` under torch.profiler: the device's busy share of the wall
         time, CUDA launches per ``count`` (steps or dispatches) and the
-        top kernels and host operators."""
+        top kernels and host operators; a decode or speculative step's
+        launches must equal ``STEP_LAUNCHES[path]``. Returns the line."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -740,24 +804,25 @@ def main() -> int:
         top_dev = sorted(kernels, key=dev_us, reverse=True)[:12]
         top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                          reverse=True)[:12]
-        want = (STEP_LAUNCHES[path] if path != "serve_grok"
-                or grok_layers == 4 else None)
-        if what == "decode_step" and want is not None \
-                and launch_calls != want * count:
-            fail(f"{path}: {launch_calls / count} CUDA launches a decode "
-                 f"step, {want} before the energy model")
-        emit({"phase": "profile", "path": path, "of": what, "count": count,
+        checked = what in ("decode_step", "spec_step")
+        want = (STEP_LAUNCHES.get(path) if checked and (
+            path != "serve_grok" or grok_layers == 4) else None)
+        if want is not None and launch_calls != want * count:
+            fail(f"{path}: {launch_calls / count} CUDA launches a {what}, "
+                 f"not {want}")
+        line = {"phase": "profile", "path": path, "of": what, "count": count,
               "wall_us": wall_us, "device_busy_us": busy_us,
               "device_idle_share": (1 - busy_us / wall_us) if busy_us
               else None,
               "cuda_launches_per": launch_calls / count,
-              "expected_launches_per": want if what == "decode_step"
-              else None,
+              "expected_launches_per": want,
               "device_ops_per": sum(e.count for e in kernels) / count,
               "top_device": [(e.key, e.count, dev_us(e)) for e in top_dev],
               "top_cpu_self": [(e.key, e.count, e.self_cpu_time_total)
                                for e in top_cpu],
-              "card": card})
+              "card": card}
+        emit(line)
+        return line
 
     def profile_path(path, engine, arch, bucket):
         """Three more decode steps, then one full-bucket prefill dispatch
@@ -796,6 +861,7 @@ def main() -> int:
 
     launches_by_path = {}
     by_design_total = dict.fromkeys(DESIGNS, 0)
+    step_median = {}          # decode step median ms of each serve path
 
     # MoE assignments dropped past an expert's capacity, counted on the
     # device (no sync) per kind of dispatch: a decode routes SLOTS tokens
@@ -833,6 +899,7 @@ def main() -> int:
         dropped = take_drops()
         by_design = dict(grmac_matmul_cuda.launches_by_design)
         launches_by_path[path] = launches
+        step_median[path] = float(np.median(decode_ms))
         for d in DESIGNS:
             by_design_total[d] += by_design[d]
         dispatches = (engine.stats["prefill_dispatches"]
@@ -967,6 +1034,18 @@ def main() -> int:
         return {k: v for k, v in m.items()
                 if not k.endswith(("_ms", "_s"))}
 
+    def fetch_counted(engine):
+        """Count every device-to-host fetch of ``engine``."""
+        seen = {"fetch": 0}
+        real_fetch = engine._fetch
+
+        def fetch(ids):
+            seen["fetch"] += 1
+            return real_fetch(ids)
+
+        engine._fetch = fetch
+        return seen
+
     def scheduled_run(arch, params, backend, drive):
         """One scheduler run on a new engine (8 slots, max_ctx 512, prefix
         cache on) through ``drive(sched, clock)``, the kernel's launches
@@ -975,18 +1054,15 @@ def main() -> int:
         engine = Engine(arch, params, ServeConfig(
             batch_slots=SLOTS, max_ctx=512, cim_backend=backend,
             prefix_cache_bytes=1 << 28), device=dev)
-        seen = {"fetch": 0, "first": 0}
-        real_fetch, real_finish = engine._fetch, engine.finish_prefill
-
-        def fetch(ids):
-            seen["fetch"] += 1
-            return real_fetch(ids)
+        seen = fetch_counted(engine)
+        seen["first"] = 0
+        real_finish = engine.finish_prefill
 
         def finish(slot, key=None):
             seen["first"] += 1
             return real_finish(slot, key=key)
 
-        engine._fetch, engine.finish_prefill = fetch, finish
+        engine.finish_prefill = finish
         clock = StepClock()
         sched = Scheduler(engine, SchedulerConfig(prefill_token_budget=16,
                                                   preempt_age=80.0),
@@ -1206,6 +1282,401 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------- serve_spec and train
+    from repro_torch.serving.speculative import (SpecConfig, SpecDecoder,
+                                                 price_speculation)
+    from repro_torch.training import OptimizerConfig, TrainConfig
+    from repro_torch.training import make_train_step
+    from repro_torch.training.optimizer import apply_updates, init_opt_state
+
+    # serve_spec's lanes that sample (T 0.8, seeded by their index); the
+    # others are greedy
+    SPEC_SAMPLED = (2, 5)
+
+    def serve_spec(arch, params):
+        """``serve``'s prompts under ``SpecDecoder`` (k 4, the digital
+        drafter: the raw weights beside the packed ones), 16 speculative
+        steps, through the kernel and through the plain version: equal
+        streams and counters, the kernel launched once a projection for
+        each prefill and verify dispatch (the drafts are digital), one
+        fetch a first token, a draft and a verify. Then three spec steps
+        profiled (launches per step against ``STEP_LAUNCHES``), one draft
+        and one verify dispatch profiled alone, and the energy account."""
+        fwd = per_forward(arch)
+        prompts = prompts_of(arch, (5, 8, 12, 17, 24, 33, 40, 60))
+        reqs = [SamplingParams(temperature=0.8, seed=i) if i in SPEC_SAMPLED
+                else SamplingParams() for i in range(SLOTS)]
+        n_steps = 16
+        runs = {}
+        for backend in (None, "ref"):
+            reset_counts()
+            eng = Engine(arch, params, ServeConfig(
+                batch_slots=SLOTS, max_ctx=512, cim_backend=backend),
+                device=dev)
+            # peak from here, as serve's: the weights are packed already
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            seen = fetch_counted(eng)
+            for p, sp in zip(prompts, reqs):
+                eng.add_request(p, params=sp)
+            dec = SpecDecoder(eng, SpecConfig(k=4, draft="digital"))
+            step_ms = []
+            for _ in range(n_steps):
+                t0 = time.perf_counter()
+                dec.step()
+                torch.cuda.synchronize()
+                step_ms.append(1e3 * (time.perf_counter() - t0))
+            st = dict(eng.stats)
+            runs[backend] = dict(
+                eng=eng, dec=dec, stats=st, fetches=seen["fetch"],
+                launches=grmac_matmul_cuda.launches, step_ms=step_ms,
+                peak=torch.cuda.max_memory_allocated(),
+                streams=[list(t) for t in eng.tokens])
+            want = (fwd * (st["prefill_dispatches"] + st["decode_steps"]
+                           + st["verify_dispatches"]
+                           + st["repair_dispatches"])
+                    + grmac_per_forward(dec.draft_arch)
+                    * st["draft_dispatches"]) if backend is None else 0
+            fetch_want = (SLOTS + st["draft_dispatches"]
+                          + st["verify_dispatches"] + st["decode_steps"])
+            emit({"phase": "serve_spec", "backend": backend or "kernel",
+                  "arch": arch.name, "batch_slots": SLOTS, "k": 4,
+                  "draft": "digital", "sampled_lanes": list(SPEC_SAMPLED),
+                  "spec_steps_run": n_steps, "stats": st,
+                  "accepted_tokens_per_step":
+                      st["spec_tokens"] / st["spec_steps"],
+                  "accepted_tokens_per_lane_step":
+                      st["spec_tokens"] / st["spec_steps"] / SLOTS,
+                  "fetches": seen["fetch"], "expected_fetches": fetch_want,
+                  "kernel_launches": grmac_matmul_cuda.launches,
+                  "expected_launches": want,
+                  "spec_step_ms": step_ms,
+                  "spec_step_ms_median": float(np.median(step_ms)),
+                  "serve_decode_step_ms_median": step_median.get("serve"),
+                  "peak_mem_bytes": runs[backend]["peak"], "card": card})
+            if grmac_matmul_cuda.launches != want or seen["fetch"] != \
+                    fetch_want or st["spec_steps"] != n_steps:
+                fail(f"serve_spec ({backend or 'kernel'}): "
+                     f"{grmac_matmul_cuda.launches} kernel launches (want "
+                     f"{want}), {seen['fetch']} fetches (want {fetch_want})")
+        k, r = runs[None], runs["ref"]
+        launches_by_path["serve_spec"] = k["launches"]
+        same = k["streams"] == r["streams"] and k["stats"] == r["stats"] \
+            and k["fetches"] == r["fetches"]
+        eng, dec = k["eng"], k["dec"]
+        price = price_speculation(arch, dec.draft_arch, k["stats"],
+                                  eng._bucket(4), device=dev)
+        verify_launches = (k["launches"] - fwd * k["stats"][
+            "prefill_dispatches"]) / k["stats"]["spec_steps"]
+        emit({"phase": "serve_spec_oracle", "streams_equal":
+              k["streams"] == r["streams"], "counters_equal":
+              k["stats"] == r["stats"] and k["fetches"] == r["fetches"],
+              "oracle_spec_step_ms_median": float(np.median(r["step_ms"])),
+              "kernel_launches_per_spec_step": verify_launches,
+              "price_speculation": price, "card": card})
+        if not same:
+            fail("serve_spec: streams or counters differ from the plain "
+                 "version's on the card")
+        del runs, r
+        gc.collect()
+        torch.cuda.empty_cache()
+        profiled("serve_spec", "spec_step",
+                 lambda: [dec.step() for _ in range(3)], 3)
+        # the parts of a spec step: a draft dispatch (all lanes drafting)
+        # and a sampled verify dispatch of 4 tokens a lane
+        profiled("serve_spec", "draft_dispatch", lambda: eng.draft_step(
+            dec.draft_arch, eng._last_host.copy(), eng.active.copy(),
+            eng.lengths.copy()), 1)
+        chunk = np.zeros((SLOTS, 4), np.int32)
+        chunk[:, 0] = eng._last_host
+        profiled("serve_spec", "verify_dispatch",
+                 lambda: eng.verify_chunk_sampled(
+                     chunk, np.full(SLOTS, 4, np.int32), None), 1)
+        del eng, dec, k
+        gc.collect()
+        torch.cuda.empty_cache()
+        spec_vs_sequential_off(arch, params, prompts)
+
+    def spec_vs_sequential_off(arch, params, prompts, n=33):
+        """With the CIM path off, greedy speculative streams (k 4; the
+        drafter is then the served arch) against sequential decode's, the
+        first ``n`` generated tokens of each of ``serve``'s lanes: they
+        must be equal. cuBLAS could reduce a verify chunk's M = 64 rows in
+        another order than a decode step's 8 and flip an argmax near a
+        tie; on the H100 they came out bitwise equal, so the check is a
+        gate (in GR-MAC mode the streams differ by design, ROADMAP
+        section C)."""
+        off = arch.replace(cim=arch.cim.with_mode("off"))
+        streams = {}
+        for mode in ("sequential", "speculative"):
+            eng = Engine(off, params, ServeConfig(batch_slots=SLOTS,
+                                                  max_ctx=512), device=dev)
+            for p in prompts:
+                eng.add_request(p)
+            dec = SpecDecoder(eng, SpecConfig(k=4)) if mode != \
+                "sequential" else None
+            while min(len(t) - len(p) for t, p in
+                      zip(eng.tokens, prompts)) < n:
+                (dec or eng).step()
+            streams[mode] = [t[len(p):len(p) + n]
+                             for t, p in zip(eng.tokens, prompts)]
+            del eng, dec
+        seq, spec = streams["sequential"], streams["speculative"]
+        prefix = [next((i for i, (a, b) in enumerate(zip(x, y)) if a != b),
+                       n) for x, y in zip(seq, spec)]
+        emit({"phase": "serve_spec_cim_off", "arch": arch.name,
+              "tokens_per_lane": n, "lanes_equal": sum(
+                  p == n for p in prefix),
+              "matching_prefix_share": sum(prefix) / (n * len(prefix)),
+              "matching_token_share": sum(a == b for x, y in zip(seq, spec)
+                                          for a, b in zip(x, y))
+              / (n * len(prefix)),
+              "bitwise": seq == spec, "card": card})
+        if seq != spec:
+            fail("serve_spec_cim_off: greedy speculative streams differ "
+                 "from sequential decode's with the CIM path off")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # (drafter label, SpecConfig.draft) of the rollback family's runs: the
+    # served arch itself, and one whose SSM projections run digital, which
+    # forces partial acceptance and so rollbacks and repairs
+    SPEC_ROLLBACK = {"serve_mamba2": (("self", "self"),
+                                      ("site_override", {"ssm": "off"}))}
+
+    def spec_rollback(path, arch, params, serve_kw, drafters):
+        """The ``Scheduler(spec=...)`` over a rollback family (SSM states
+        and conv windows), 4 requests of 8 tokens, for each drafter
+        through the kernel and the plain version: equal streams, counters
+        and policy metrics; the site-override drafter must repair."""
+        fwd = per_forward(arch)
+        prompts = prompts_of(arch, (3, 5, 8, 12))
+        launches_by_path[f"{path}_spec"] = 0
+        for label, draft in drafters:
+            out = {}
+            for backend in (None, "ref"):
+                eng = Engine(arch, params, ServeConfig(
+                    batch_slots=SLOTS, cim_backend=backend, **serve_kw),
+                    device=dev)
+                seen = fetch_counted(eng)
+                clock = StepClock()
+                sched = Scheduler(eng, SchedulerConfig(), clock=clock.now,
+                                  spec=SpecConfig(k=4, draft=draft))
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for p in prompts:
+                    sched.submit(p, params=SamplingParams(max_tokens=8))
+                steps = 0
+                while not sched.idle():
+                    sched.step()
+                    clock.tick()
+                    steps += 1
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                st = dict(eng.stats)
+                want = (fwd * (st["prefill_dispatches"]
+                               + st["decode_steps"]
+                               + st["verify_dispatches"]
+                               + st["repair_dispatches"])
+                        + grmac_per_forward(sched._spec.draft_arch)
+                        * st["draft_dispatches"]) if backend is None else 0
+                fetch_want = (len(prompts) + st["draft_dispatches"]
+                              + st["verify_dispatches"] + st["decode_steps"])
+                launches = grmac_matmul_cuda.launches
+                if backend is None:
+                    launches_by_path[f"{path}_spec"] += launches
+                m = policy(sched.metrics())
+                out[backend] = ([r.generated for r in sched.requests], st,
+                                m, seen["fetch"])
+                emit({"phase": f"{path}_spec", "drafter": label,
+                      "backend": backend or "kernel", "arch": arch.name,
+                      "requests": len(prompts), "scheduler_steps": steps,
+                      "stats": st, "fetches": seen["fetch"],
+                      "expected_fetches": fetch_want,
+                      "kernel_launches": launches, "expected_launches": want,
+                      "accepted_tokens_per_step":
+                          st["spec_tokens"] / max(1, st["spec_steps"]),
+                      "wall_s": wall, "card": card})
+                if launches != want or seen["fetch"] != fetch_want:
+                    fail(f"{path}_spec {label}: {launches} kernel launches "
+                         f"(want {want}), {seen['fetch']} fetches (want "
+                         f"{fetch_want})")
+                del eng, sched
+                gc.collect()
+                torch.cuda.empty_cache()
+            same = out[None] == out["ref"]
+            emit({"phase": f"{path}_spec_oracle", "drafter": label,
+                  "streams_equal": out[None][0] == out["ref"][0],
+                  "counters_and_metrics_equal": out[None][1:]
+                  == out["ref"][1:], "card": card})
+            if not same:
+                fail(f"{path}_spec {label}: streams, counters or metrics "
+                     "differ from the plain version's on the card")
+            if label == "site_override" and not out[None][1][
+                    "repair_dispatches"]:
+                fail(f"{path}_spec: the site-override drafter repaired "
+                     "nothing")
+
+    def loss_and_grads(arch, params, batch):
+        """``train_loss`` and the gradients of every parameter."""
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        _, metrics = train_loss(leaves, batch, arch)
+        grads = torch.autograd.grad(metrics["total"], tree_leaves(leaves),
+                                    materialize_grads=True)
+        return metrics, grads
+
+    def train_launches(arch) -> int:
+        """Kernel launches of one train step: the forward's, and under
+        remat every layer's again in the backward (the head is not
+        recomputed; these configs have no tail layers)."""
+        fwd = per_forward(arch)
+        if arch.n_layers % arch.pattern_period():
+            fail(f"{arch.name}: a tail layer outside the remat super-blocks")
+        return fwd + (fwd - 1 if arch.remat else 0)
+
+    def train_vs_plain(path, arch, params, batch, extra=None):
+        """One step's loss and gradients through the kernel (the per-call
+        route: every raw weight packed on every call) and through the plain
+        version, deterministic algorithms on (the embedding's backward
+        accumulates by index): the loss equal, each gradient within
+        ``GRAD_RTOL`` of its largest entry."""
+        want = train_launches(arch)
+        runs = {}
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for backend in (None, "ref"):
+                a = arch if backend is None else arch.replace(
+                    cim=arch.cim.with_backend("ref"))
+                reset_counts()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                metrics, grads = loss_and_grads(a, params, batch)
+                torch.cuda.synchronize()
+                runs[backend] = dict(
+                    loss=float(metrics["loss"].detach()), grads=grads,
+                    launches=grmac_matmul_cuda.launches,
+                    ms=1e3 * (time.perf_counter() - t0),
+                    peak=torch.cuda.max_memory_allocated())
+        finally:
+            torch.use_deterministic_algorithms(False)
+        k, r = runs[None], runs["ref"]
+        worst_abs = worst_rel = 0.0
+        bitwise = 0
+        for gk, gr in zip(k["grads"], r["grads"]):
+            d = float((gk.float() - gr.float()).abs().max())
+            scale = float(gr.float().abs().max())
+            worst_abs = max(worst_abs, d)
+            worst_rel = max(worst_rel, d / scale if scale else
+                            (0.0 if d == 0 else math.inf))
+            bitwise += bool(torch.equal(gk, gr))
+        launches_by_path[path] = launches_by_path.get(path, 0) + k["launches"]
+        ok = (k["loss"] == r["loss"] and math.isfinite(k["loss"])
+              and worst_rel <= GRAD_RTOL and k["launches"] == want
+              and r["launches"] == 0)
+        emit({"phase": path, "vs": "plain version", "arch": arch.name,
+              "n_layers": arch.n_layers, "remat": arch.remat,
+              "remat_policy": arch.remat_policy,
+              "batch": list(batch["inputs"].shape), "rows_per_projection":
+              batch["inputs"].numel(), **(extra or {}),
+              "loss": k["loss"], "plain_loss": r["loss"],
+              "loss_equal": k["loss"] == r["loss"],
+              "grad_tensors": len(k["grads"]), "grad_tensors_bitwise": bitwise,
+              "grad_max_abs_diff": worst_abs,
+              "grad_max_rel_diff": worst_rel, "grad_rtol": GRAD_RTOL,
+              "kernel_launches": k["launches"], "expected_launches": want,
+              "fwd_bwd_ms": k["ms"], "plain_fwd_bwd_ms": r["ms"],
+              "peak_mem_bytes": k["peak"], "plain_peak_mem_bytes": r["peak"],
+              "ok": ok, "card": card})
+        if not ok:
+            fail(f"{path}: loss {k['loss']} vs {r['loss']}, gradients within "
+                 f"{worst_rel} (bound {GRAD_RTOL}), {k['launches']} kernel "
+                 f"launches (want {want})")
+        loss = k["loss"]
+        del runs, k, r
+        gc.collect()
+        torch.cuda.empty_cache()
+        return loss
+
+    # (path, batch, seq) of one train step in a family's serve phase
+    TRAIN_ONE_STEP = {"serve_mamba2": ("train_mamba2", 1, 256),
+                      "serve_recurrentgemma": ("train_recurrentgemma", 1, 64)}
+
+    def train_paper(arch, params):
+        """paper-cim-120m at full width and depth, batch 8 x 256, AdamW at
+        lr 3e-5, warmup 1: step 0 against the plain version, then 4 steps
+        through the kernel (the loss must fall), the step's time split,
+        and a profiled step. On the H100 the first step takes the loss
+        from 9.70 to 4.4-4.6 at lr 1e-3 and 3e-4 alike, and the next ones
+        oscillate more the larger lr is (9.70, 4.61, 17.32, 9.82 at
+        AdamW's default 3e-4)."""
+        data = SyntheticLM(DataConfig(global_batch=8, seq_len=256,
+                                      vocab_size=arch.vocab_size, seed=SEED),
+                           device=dev)
+        loss0 = train_vs_plain("train", arch, params, data.batch_at(0))
+        tcfg = TrainConfig(opt=OptimizerConfig(lr=3e-5, warmup_steps=1,
+                                               total_steps=5))
+        step_fn = make_train_step(arch, tcfg)
+        p, o = params, init_opt_state(params, tcfg.opt)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses, step_ms = [], []
+        for step in range(4):
+            t0 = time.perf_counter()
+            p, o, m = step_fn(p, o, data.batch_at(step))
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        launches = grmac_matmul_cuda.launches
+        launches_by_path["train"] += launches
+        peak = torch.cuda.max_memory_allocated()
+        want = 4 * train_launches(arch)
+        # the step's split: the forward alone, forward and backward, and the
+        # rest (the optimizer) from the step's median
+        batch = data.batch_at(4)
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            return 1e3 * (time.perf_counter() - t0)
+
+        leaves = tree_map(lambda t: t.detach().requires_grad_(True), p)
+        fwd_ms = timed(lambda: train_loss(leaves, batch, arch))
+        got = []
+        fb_ms = timed(lambda: got.append(loss_and_grads(arch, p, batch)))
+        it = iter(got[0][1])
+        grads = tree_map(lambda _: next(it), p)
+        opt_ms = timed(lambda: apply_updates(p, grads, o, tcfg.opt))
+        del leaves, got, grads
+        prof = profiled("train", "train_step",
+                        lambda: step_fn(p, o, batch), 1)
+        med = float(np.median(step_ms))
+        emit({"phase": "train", "arch": arch.name, "batch": [8, 256],
+              "rows_per_projection": 8 * 256, "remat": arch.remat,
+              "remat_policy": arch.remat_policy, "optimizer": "adamw",
+              "lr": tcfg.opt.lr, "warmup_steps": 1, "losses": losses,
+              "monotone": all(b < a for a, b in zip(losses, losses[1:])),
+              "step0_loss_vs_plain_run": loss0, "step_ms": step_ms,
+              "step_ms_median": med, "tokens_per_s": 8 * 256 * 1e3 / med,
+              "forward_ms": fwd_ms, "backward_ms": fb_ms - fwd_ms,
+              "optimizer_ms": opt_ms,
+              "kernel_launches": launches, "expected_launches": want,
+              "kernel_launches_per_step": launches / 4,
+              "cuda_launches_per_step": prof["cuda_launches_per"],
+              "device_idle_share": prof["device_idle_share"],
+              "peak_mem_bytes": peak, "card": card})
+        if launches != want or losses[0] != loss0 or not \
+                losses[-1] < losses[0] or not all(map(math.isfinite, losses)):
+            fail(f"train: losses {losses} (step 0 {loss0} through the "
+                 f"comparison), {launches} kernel launches (want {want})")
+        del p, o, step_fn
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # paper-cim-120m, the first slice's path, as before
     params = init_params(paper, SEED, device=dev)
     prompts = prompts_of(paper, (5, 8, 12, 17, 24, 33, 40, 60))
@@ -1284,10 +1755,14 @@ def main() -> int:
 
     serve_scheduler(paper, params, pj)
     prefix_hit_vs_cold("serve", paper, params, dict(max_ctx=512), 64, 16)
+    seconds("serve_scheduler")
+    serve_spec(paper, params)
+    seconds("serve_spec")
+    train_paper(paper, params)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    seconds("serve_scheduler")
+    seconds("train")
 
     def with_grmac(arch):
         # the default design: row, FP6_E3M2 x FP4_E2M1, n_r 32, ENOB 8
@@ -1331,7 +1806,7 @@ def main() -> int:
                        **(extra or {}))
         t0 = time.perf_counter()
         params = init_params(arch, SEED, device=dev)
-        leaves = list(_leaves(params))
+        leaves = tree_leaves(params)
         emit({"phase": f"{path}_setup", "arch": arch.name,
               "n_layers": arch.n_layers, "d_model": arch.d_model,
               "n_heads": arch.n_heads, "n_kv_heads": arch.n_kv_heads,
@@ -1346,6 +1821,16 @@ def main() -> int:
         if path in PREFIX_HIT:
             prefix_hit_vs_cold(path, arch, params, serve_kw,
                                *PREFIX_HIT[path])
+        if path in SPEC_ROLLBACK:
+            spec_rollback(path, arch, params, serve_kw, SPEC_ROLLBACK[path])
+        if path in TRAIN_ONE_STEP:
+            train_path, b, s_len = TRAIN_ONE_STEP[path]
+            data = SyntheticLM(DataConfig(global_batch=b, seq_len=s_len,
+                                          vocab_size=arch.vocab_size,
+                                          seed=SEED), device=dev)
+            train_vs_plain(train_path, arch, params, data.batch_at(0),
+                           extra)
+            del data
         del params
         gc.collect()
         torch.cuda.empty_cache()
@@ -1361,7 +1846,7 @@ def main() -> int:
     arch = with_grmac(archs["musicgen-medium"])
     t0 = time.perf_counter()
     params = init_params(arch, SEED, device=dev)
-    leaves = list(_leaves(params))
+    leaves = tree_leaves(params)
     emit({"phase": "forward_musicgen_setup", "arch": arch.name,
           "n_layers": arch.n_layers, "d_model": arch.d_model,
           "dtype": arch.dtype, "params": sum(t.numel() for t in leaves),
@@ -1470,24 +1955,15 @@ def main() -> int:
         "gemma3_prefill_forward": totals["gemma3_prefill"],
         "grok_decode_forward": totals["grok_decode"],
         "grok_prefill_forward": totals["grok_prefill"],
+        # paper-cim-120m's train forward at M = 8 x 256, with the per-call
+        # route's packing of every weight (pack_ms)
+        "train_forward": totals["train_forward"],
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})
     return 0
-
-
-def _leaves(tree):
-    """The tensors of a nested dict of parameters."""
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 if __name__ == "__main__":

@@ -14,14 +14,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.tree import tree_map
 
 __all__ = ["params_from_jax"]
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def params_from_jax(tree: dict, arch: ArchConfig,
@@ -44,7 +39,7 @@ def params_from_jax(tree: dict, arch: ArchConfig,
     layers = []
     for i in range(n_super):
         for j, kind in enumerate(pat):
-            layers.append(_tree_map(lambda a: a[i],
+            layers.append(tree_map(lambda a: a[i],
                                     tree["superblocks"][f"b{j}_{kind}"]))
     for i in range(n_tail):
         layers.append(tree["tail"][f"t{i}_{pat[i]}"])
@@ -55,8 +50,8 @@ def params_from_jax(tree: dict, arch: ArchConfig,
     out = {}
     if "embed" in tree:
         out["embed"] = to_torch(tree["embed"])
-    out["layers"] = [_tree_map(to_torch, layer) for layer in layers]
-    out["final_norm"] = _tree_map(to_torch, tree["final_norm"])
+    out["layers"] = [tree_map(to_torch, layer) for layer in layers]
+    out["final_norm"] = tree_map(to_torch, tree["final_norm"])
     if "lm_head" in tree:
-        out["lm_head"] = _tree_map(to_torch, tree["lm_head"])
+        out["lm_head"] = tree_map(to_torch, tree["lm_head"])
     return out

@@ -11,19 +11,23 @@ prefill: the prefill runs the decode recurrence (``_recurrence_step``)
 over the chunk in a Python loop, so a bucketed prefill stays on top of the
 token-by-token path. The three input projections and the output
 projection are CIM sites ("rglru"), each with its own pre-scale. The
-train path (an associative scan) is not ported yet.
+train path (``rglru_train``, no cache) runs the recurrence as an
+associative scan over time, in the order ``jax.lax.associative_scan``
+combines (``associative_scan``).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple, Union
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dense
 
-__all__ = ["rglru_decode", "rglru_prefill", "init_rglru_state",
-           "init_lam", "softplus", "causal_conv_step"]
+__all__ = ["rglru_train", "rglru_decode", "rglru_prefill",
+           "init_rglru_state", "init_lam", "softplus", "causal_conv",
+           "causal_conv_step", "associative_scan"]
 
 _C = 8.0
 
@@ -64,6 +68,41 @@ def causal_conv_step(kernel: torch.Tensor, win: torch.Tensor,
     return xc, full[:, 1:]
 
 
+def causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """The depthwise causal conv over a whole sequence: x (B, S, C) left
+    padded by W - 1 zeros, summed against ``kernel`` (W, C) tap by tap."""
+    w, s = kernel.shape[0], x.shape[1]
+    xp = F.pad(x, (0, 0, w - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(w):
+        out = out + xp[:, i:i + s] * kernel[i]
+    return out
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """Along dim 1: even[0], odd[0], even[1], ... (even has as many
+    entries as odd, or one more)."""
+    n = odd.shape[1]
+    both = torch.stack([even[:, :n], odd], dim=2).flatten(1, 2)
+    return torch.cat([both, even[:, n:]], dim=1)
+
+
+def associative_scan(fn, elems: tuple) -> tuple:
+    """Inclusive scan of ``fn`` (associative, on tuples of tensors) along
+    dim 1, combining in the order ``jax.lax.associative_scan`` does: scan
+    the pairwise reduction of adjacent entries recursively (the odd
+    outputs), then combine each with the next even input."""
+    n = elems[0].shape[1]
+    if n < 2:
+        return elems
+    odd = associative_scan(fn, fn(tuple(e[:, 0:n - 1:2] for e in elems),
+                                  tuple(e[:, 1::2] for e in elems)))
+    head = odd if n % 2 else tuple(e[:, :-1] for e in odd)
+    even = fn(head, tuple(e[:, 2::2] for e in elems))
+    even = tuple(torch.cat([e[:, :1], r], dim=1) for e, r in zip(elems, even))
+    return tuple(_interleave(e, o) for e, o in zip(even, odd))
+
+
 def _branches(p, u, cfg: ArchConfig):
     x = dense(p["in_proj"], u, cfg.cim, "rglru")
     r = torch.sigmoid(dense(p["gate_r"], u, cfg.cim, "rglru")
@@ -72,6 +111,24 @@ def _branches(p, u, cfg: ArchConfig):
                       .to(torch.float32))
     log_a = -_C * softplus(p["lam"])[None, None, :] * r          # (B,S,W) <= 0
     return x, i, log_a
+
+
+def rglru_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The whole sequence at once (no cache): u (B, S, D) -> (B, S, D),
+    the recurrence h_t = a_t h_{t-1} + b_t as an associative scan over
+    the pairs (a, b) from a zero state."""
+    x, i, log_a = _branches(p, u, cfg)
+    x = causal_conv(x, p["conv"].to(x.dtype))
+    a = torch.exp(log_a)
+    gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (
+        i * x.to(torch.float32))
+
+    def combine(c1, c2):
+        (a1, b1), (a2, b2) = c1, c2
+        return a1 * a2, a2 * b1 + b2
+
+    _, h = associative_scan(combine, (a, gated))
+    return dense(p["out_proj"], h.to(u.dtype), cfg.cim, "rglru")
 
 
 def _recurrence_step(kernel, h, win, x_t, i_t, log_a_t):

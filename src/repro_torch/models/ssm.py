@@ -9,7 +9,10 @@ The port's counterpart of ``repro.models.ssm`` for decode and chunked
 prefill: the prefill runs the decode recurrence (``_recurrence_step``)
 over the chunk in a Python loop, so a bucketed prefill reproduces the
 token-by-token state trajectory. The four projections are CIM sites
-("ssm"). The train path (the chunked SSD dual form) is not ported yet.
+("ssm"). The train path (``ssm_train``, no cache) is the chunked SSD
+algorithm (arXiv:2405.21060 §6): within a chunk of ``ssm_chunk`` steps the
+dual quadratic (attention-like) form, across chunks a scan over the chunk
+states. Its f32 sums run in another order than the recurrence's.
 """
 from __future__ import annotations
 
@@ -19,9 +22,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dense, rmsnorm, silu
-from repro_torch.models.rglru import causal_conv_step, softplus
+from repro_torch.models.rglru import causal_conv, causal_conv_step, softplus
 
-__all__ = ["ssm_decode", "ssm_prefill", "init_ssm_state"]
+__all__ = ["ssm_train", "ssm_decode", "ssm_prefill", "init_ssm_state"]
 
 
 def init_ssm_state(cfg: ArchConfig, batch: int,
@@ -45,6 +48,51 @@ def _project(p, u, cfg: ArchConfig):
     dt = dense(p["dt_proj"], u, cfg.cim, "ssm").to(torch.float32)
     dt = softplus(dt + p["dt_bias"][None, None, :])              # (B,S,NH)
     return z, x, bmat, cmat, dt
+
+
+def ssm_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The whole sequence at once (no cache), from a zero state: u (B, S, D)
+    -> (B, S, D); S must be a multiple of ``ssm_chunk``. The SSD
+    contractions are digital (data-dependent, never on a CIM array)."""
+    b, s = u.shape[:2]
+    di, n, nh, hd, ck = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
+                         cfg.ssm_headdim, cfg.ssm_chunk)
+    if s % ck:
+        raise ValueError(f"seq {s} must be a multiple of ssm_chunk {ck}")
+    nc = s // ck
+    z, x, bmat, cmat, dt = _project(p, u, cfg)
+    x = silu(causal_conv(x, p["conv"].to(x.dtype)))
+    xh = x.reshape(b, s, nh, hd).to(torch.float32)
+    log_a = -dt * torch.exp(p["A_log"])[None, None, :]           # (B,S,NH) <= 0
+    xc = xh.reshape(b, nc, ck, nh, hd)
+    bc_ = bmat.reshape(b, nc, ck, n)
+    cc_ = cmat.reshape(b, nc, ck, n)
+    dtc = dt.reshape(b, nc, ck, nh)
+    cum = torch.cumsum(log_a.reshape(b, nc, ck, nh), dim=2)      # (B,NC,CK,NH)
+    # intra-chunk: decay(i <- j) = exp(cum_i - cum_j) for i >= j, masked
+    # before the exp (the other side would overflow)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]         # (B,NC,i,j,NH)
+    ii = torch.arange(ck, device=u.device)
+    causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    decay = torch.exp(torch.where(causal, diff, float("-inf")))
+    cb = torch.einsum("bgin,bgjn->bgij", cc_, bc_)
+    att = cb[..., None] * decay * dtc[:, :, None, :, :]          # (B,NC,i,j,NH)
+    y_intra = torch.einsum("bgijh,bgjhp->bgihp", att, xc)
+    # chunk states, carried across chunks by a scan
+    tail = torch.exp(cum[:, :, -1:, :] - cum) * dtc              # (B,NC,CK,NH)
+    chunk_state = torch.einsum("bgjh,bgjn,bgjhp->bghnp", tail, bc_, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])                    # (B,NC,NH)
+    h = torch.zeros((b, nh, n, hd), dtype=torch.float32, device=u.device)
+    before = []
+    for g in range(nc):
+        before.append(h)                     # the state before chunk g
+        h = chunk_decay[:, g, :, None, None] * h + chunk_state[:, g]
+    h_before = torch.stack(before, dim=1)                        # (B,NC,NH,N,P)
+    y_inter = torch.einsum("bgin,bgih,bghnp->bgihp", cc_, torch.exp(cum),
+                           h_before)
+    y = (y_intra + y_inter).reshape(b, s, nh, hd)
+    y = y + p["D"][None, None, :, None] * xh
+    return _out(p, y.reshape(b, s, di), z, u, cfg)
 
 
 def _recurrence_step(p, cfg: ArchConfig, kernel, a_rate, h, win, x_t, b_t,

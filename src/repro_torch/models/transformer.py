@@ -10,9 +10,12 @@ reference stacks super-blocks for ``lax.scan``;
 Python loop over the layers.
 
 Three execution paths share the layer code:
-  train            full-sequence, no caches (attention blocks only so far:
-                   the RG-LRU and SSM train forms wait for the training
-                   slice)
+  train            full-sequence, no caches (RG-LRU by an associative scan,
+                   SSM by the chunked SSD form); under autograd each full
+                   super-block of ``len(block_pattern)`` layers is
+                   recomputed in the backward when ``cfg.remat`` is set
+                   (``torch.utils.checkpoint``, the reference's
+                   ``jax.checkpoint``)
   chunked prefill  a prompt chunk against per-layer caches, KV written at
                    per-lane offsets in one pass and recurrent states
                    advanced step by step (``prefill_step``; right padding
@@ -23,10 +26,12 @@ recurrent states replaced) and return the same dict.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Union
 
 import torch
+import torch.utils.checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
@@ -36,8 +41,10 @@ from repro_torch.kernels.packed import pack_weight
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe
 from repro_torch.models.rglru import (init_lam, init_rglru_state,
-                                      rglru_decode, rglru_prefill)
-from repro_torch.models.ssm import init_ssm_state, ssm_decode, ssm_prefill
+                                      rglru_decode, rglru_prefill,
+                                      rglru_train)
+from repro_torch.models.ssm import (init_ssm_state, ssm_decode, ssm_prefill,
+                                    ssm_train)
 
 __all__ = [
     "init_params",
@@ -261,11 +268,14 @@ def init_cache(cfg: ArchConfig, batch: int, ctx_len: int,
 
 # ------------------------------------------------------------------ forward
 def _recurrent(kind, p, h, cfg, cache, chunk_lengths, active):
-    """An RG-LRU or SSM block's serving path; the new state replaces the
-    old one in ``cache``, except in lanes outside ``active`` (decode),
-    which keep theirs."""
-    prefill, decode = ((rglru_prefill, rglru_decode) if kind == "rglru"
-                       else (ssm_prefill, ssm_decode))
+    """An RG-LRU or SSM block: the train form without a cache; else the
+    serving path, whose new state replaces the old one in ``cache``,
+    except in lanes outside ``active`` (decode), which keep theirs."""
+    train, prefill, decode = (
+        (rglru_train, rglru_prefill, rglru_decode) if kind == "rglru"
+        else (ssm_train, ssm_prefill, ssm_decode))
+    if cache is None:
+        return train(p, h, cfg)
     if chunk_lengths is not None:
         out, new = prefill(p, h, cfg, cache, chunk_lengths)
     else:
@@ -330,15 +340,10 @@ def forward(
     is the per-lane write offset of a cached call; ``chunk_lengths`` (B,)
     turns a cached call into a chunked prefill over the whole S axis;
     ``active`` (B,) bool freezes the caches of the other lanes in a
-    decode. Without a cache, RG-LRU and SSM blocks raise
-    ``NotImplementedError``.
+    decode. Without a cache and under autograd, ``cfg.remat`` recomputes
+    each full super-block in the backward (``_superblock_fn``).
     """
     _check_blocks(cfg)
-    recurrent = sorted({"rglru", "ssm"} & set(cfg.blocks()))
-    if cache is None and recurrent:
-        raise NotImplementedError(
-            f"the train path (no cache) of {recurrent} blocks is not ported "
-            "yet: it comes with the training slice")
     if cfg.input_mode == "tokens":
         x = params["embed"][inputs].to(_dtype(cfg))
     else:
@@ -352,10 +357,24 @@ def forward(
         positions = (steps.expand(b, s) if cache is None
                      else cache_index[:, None] + steps)
     aux_total = torch.zeros((), dtype=torch.float32, device=dev)
-    for i, (kind, p_l) in enumerate(zip(cfg.blocks(), params["layers"])):
+    if cache is None and cfg.remat and torch.is_grad_enabled():
+        # the reference checkpoints its scanned super-blocks, not the tail
+        period = cfg.pattern_period()
+        n_full = cfg.n_layers // period * period
+        block = _superblock_fn(cfg)
+        for i in range(0, n_full, period):
+            x, aux = _checkpoint(cfg, block, x, positions,
+                                 params["layers"][i:i + period])
+            aux_total = aux_total + aux
+        layers = range(n_full, cfg.n_layers)
+    else:
+        layers = range(cfg.n_layers)
+    kinds = cfg.blocks()
+    for i in layers:
         c = cache["layers"][i] if cache is not None else None
-        x, aux = _apply_layer(kind, p_l, x, cfg, positions, c, cache_index,
-                              chunk_lengths, active)
+        x, aux = _apply_layer(kinds[i], params["layers"][i], x, cfg,
+                              positions, c, cache_index, chunk_lengths,
+                              active)
         if aux is not None:
             aux_total = aux_total + aux
     x = L.rmsnorm(params["final_norm"], x)
@@ -374,8 +393,59 @@ def forward(
     return logits, aux_total, cache
 
 
+def _superblock_fn(cfg: ArchConfig):
+    """The train forward of one super-block (``block_pattern``'s layers in
+    order): (x, positions, layer params) -> (x, the MoE aux loss)."""
+    def run(x, positions, layer_params):
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for kind, p_l in zip(cfg.block_pattern, layer_params):
+            x, aux = _apply_layer(kind, p_l, x, cfg, positions, None, None,
+                                  None, None)
+            if aux is not None:
+                aux_total = aux_total + aux
+        return x, aux_total
+    return run
+
+
+_SAVED_BY_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                  torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """``remat_policy="dots"``: keep the matmul outputs, recompute the rest
+    (the reference's ``dots_with_no_batch_dims_saveable``)."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_BY_DOTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _checkpoint(cfg: ArchConfig, fn, *args):
+    """``fn(*args)`` recomputed in the backward: everything under
+    ``remat_policy="full"``, all but the matmul outputs under "dots"."""
+    kw = {}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    elif cfg.remat_policy != "full":
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}")
+    return ckpt.checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def train_loss(params, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01):
-    raise NotImplementedError("training is not ported yet")
+    """Mean next-token cross-entropy (masked when ``batch`` has a "mask")
+    plus ``aux_weight`` times the MoE aux loss. ``batch``: {"inputs": (B, S)
+    ids or (B, S, D) embeddings, "labels": (B, S) ids[, "mask": (B, S)]}.
+    Returns (total, {"loss", "aux_loss", "total"})."""
+    logits, aux, _ = forward(params, batch["inputs"], cfg)
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, batch["labels"][..., None].to(
+        torch.int64))[..., 0]
+    mask = batch.get("mask")
+    if mask is None:
+        loss = torch.mean(nll)
+    else:
+        loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total = loss + aux_weight * aux
+    return total, {"loss": loss, "aux_loss": aux, "total": total}
 
 
 def decode_step(params, token, cfg: ArchConfig, cache, cache_index,

@@ -1,7 +1,7 @@
 """Serving for the port: the slot ``Engine``, the ``PrefixCache`` beside
 it and the continuous-batching ``Scheduler`` above both, with the request
-types, the per-lane sampler (``serving.sampling``) and the energy report.
-Speculative decode is not ported yet."""
+types, the per-lane sampler (``serving.sampling``), self-speculative
+decode (``serving.speculative``) and the energy report."""
 from repro_torch.serving.engine import (Engine, ServeConfig, StepResult,
                                        energy_report)
 from repro_torch.serving.params import RequestOutput, SamplingParams
@@ -17,11 +17,15 @@ from repro_torch.serving.scheduler import (
     synth_shared_prefix_traffic,
     synth_traffic,
 )
+from repro_torch.serving.speculative import (SpecConfig, SpecDecoder,
+                                             draft_arch_for,
+                                             price_speculation)
 
 __all__ = [
     "Engine", "ServeConfig", "StepResult", "energy_report", "PrefixCache",
     "RequestOutput", "SamplingParams",
     "Request", "Scheduler", "SchedulerConfig", "StaticBatchScheduler",
     "StepClock", "run_open_loop", "run_closed_loop", "synth_traffic",
-    "synth_shared_prefix_traffic",
+    "synth_shared_prefix_traffic", "SpecConfig", "SpecDecoder",
+    "draft_arch_for", "price_speculation",
 ]

@@ -71,8 +71,19 @@ read them pays no trace and no Monte-Carlo solve. The solve draws on the
 engine's device. The ledger traces its own ``meta`` tree, never the
 served (packed) weights.
 
-Not ported yet: the speculative-decode seams (ROADMAP item 8c); the
-``stats`` counters of speculative dispatches stay at 0.
+Speculative seams (``serving.speculative`` orchestrates them and holds
+the design note): ``spec_snapshot`` clones the rollback-sensitive cache
+tensors (local-attention rings, RG-LRU / SSM states and conv windows; the
+port's caches change in place, so a reference would not do) and
+``spec_restore`` copies them back into the chosen lanes only; global KV
+needs none, since rows past a lane's length stay masked until they are
+overwritten. ``draft_step`` is one greedy decode dispatch of a draft
+arch (same weights, shared cache; a draft arch other than the served one
+gets its own params from the raw weights, prepared once and kept);
+``verify_chunk`` scores a chunk through ``prefill_step``'s per-position
+ids; ``verify_chunk_sampled`` runs the rejection rule on the device,
+drawing from ``serving.sampling`` keys, with one packed fetch;
+``repair_chunk`` re-feeds accepted prefixes and fetches nothing.
 """
 from __future__ import annotations
 
@@ -86,7 +97,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import costs
 from repro_torch.core.device import require_full_f32, resolve_device
-from repro_torch.models import (decode_step, init_cache,
+from repro_torch.models import (decode_step, forward, init_cache,
                                 pack_params, prefill_step)
 from repro_torch.serving import sampling
 from repro_torch.serving.params import RequestOutput, SamplingParams
@@ -173,8 +184,11 @@ class Engine:
             arch = arch.replace(cim=arch.cim.with_backend(cfg.cim_backend))
         self.arch = arch
         self.cfg = cfg
-        self.params = (params if arch.cim.backend == "ref"
-                       else pack_params(params, arch))
+        # the raw weights stay referenced: a speculative draft arch other
+        # than the served one prepares its own params from them
+        self._raw_params = params
+        self.params = self._prepared(params, arch)
+        self._draft_params: Dict[ArchConfig, dict] = {arch: self.params}
         self.cache = init_cache(arch, cfg.batch_slots, cfg.max_ctx,
                                 getattr(torch, cfg.cache_dtype), self.device)
         b = cfg.batch_slots
@@ -188,7 +202,7 @@ class Engine:
         self._max_toks = np.full(b, -1, np.int64)
         self._emitted = np.zeros(b, np.int64)
         # per-slot temperature, seed (-1: unseeded) and sampling-event
-        # count, and speculative lookahead (-1: default; not ported yet)
+        # count, and speculative lookahead (-1: the decoder's default)
         self._temp = np.full(b, cfg.temperature, np.float32)
         self._seed = np.full(b, -1, np.int64)
         self._ctr = np.zeros(b, np.int64)
@@ -206,7 +220,7 @@ class Engine:
         # cap), surfaced through the next StepResult.finished
         self._pending_finished: List[int] = []
         # prefill_tokens counts the prompt tokens dispatched (the suffix
-        # only, under a prefix hit); the speculative counters stay 0
+        # only, under a prefix hit)
         self.stats = {"prefill_dispatches": 0, "decode_steps": 0,
                       "prefill_tokens": 0, "prefix_hit_tokens": 0,
                       "draft_dispatches": 0, "verify_dispatches": 0,
@@ -214,6 +228,14 @@ class Engine:
                       "spec_tokens": 0}
         # the decode-phase energy report, priced on first request
         self._energy: Optional[dict] = None
+
+    @staticmethod
+    def _prepared(params: dict, arch: ArchConfig) -> dict:
+        """Served params of ``arch``: packed, except for the ``ref``
+        backend, which keeps the raw weights and the per-call path (the
+        independent oracle)."""
+        return params if arch.cim.backend == "ref" else pack_params(params,
+                                                                     arch)
 
     def _snapshot(self, host_state: np.ndarray) -> torch.Tensor:
         """A device copy of mutable per-slot host state. ``torch.tensor``
@@ -500,11 +522,7 @@ class Engine:
         for another decode write — after those that completed at prefill
         time. Freed slots leave the active mask and are claimable at once.
         """
-        pending, self._pending_finished = self._pending_finished, []
-        outputs = [RequestOutput(slot=s, tokens=[], finished=True,
-                                 finish_reason=self._finish_reason[s],
-                                 _energy_fn=self._pj_per_token)
-                   for s in pending]
+        pending, outputs = self._drain_pending()
         if not self.active.any():
             return StepResult({}, pending, self._pj_per_token, outputs)
         sample = bool((self._effective_temps(key)[self.active] > 0).any())
@@ -538,6 +556,172 @@ class Engine:
         self.stats["decode_steps"] += 1
         return StepResult(out, finished, self._pj_per_token, outputs)
 
+    def _drain_pending(self):
+        """Pop the completions recorded outside ``step`` (a first token that
+        hit EOS or a one-token cap): their slot ids and token-less
+        ``RequestOutput`` records."""
+        pending, self._pending_finished = self._pending_finished, []
+        outputs = [RequestOutput(slot=s, tokens=[], finished=True,
+                                 finish_reason=self._finish_reason[s],
+                                 _energy_fn=self._pj_per_token)
+                   for s in pending]
+        return pending, outputs
+
+    # ------------------------------------------------- speculative seams
+    _SPEC_STATE_KINDS = ("local", "rglru", "ssm")
+
+    def spec_snapshot(self) -> Dict[int, Dict[str, torch.Tensor]]:
+        """Copies (whole batch) of the cache tensors a draft or a verify can
+        spoil: local-attention rings (a write at ``pos % window`` destroys
+        a valid older row) and RG-LRU / SSM states with their conv windows
+        (changed by every pass), by layer index. Global-attention KV needs
+        none: rows past a lane's length stay masked until overwritten. An
+        empty dict: the arch needs no rollback."""
+        return {i: {name: t.clone() for name, t in layer.items()}
+                for i, (kind, layer) in enumerate(zip(self.arch.blocks(),
+                                                      self.cache["layers"]))
+                if kind in self._SPEC_STATE_KINDS}
+
+    def spec_restore(self, snap: Dict[int, Dict[str, torch.Tensor]],
+                     lanes: np.ndarray) -> None:
+        """Copy ``snap`` back into the lanes where ``lanes`` is True, in
+        place; the other lanes keep their current state. Nothing crosses
+        to the host."""
+        if not snap or not lanes.any():
+            return
+        idx = self._snapshot(np.where(lanes)[0])
+        for i, layer in snap.items():
+            cur = self.cache["layers"][i]
+            for name, old in layer.items():
+                cur[name].index_copy_(0, idx, old.index_select(0, idx))
+
+    def _draft_params_of(self, draft_arch: ArchConfig) -> dict:
+        """Params a draft arch runs on: the served ones for the served arch
+        (``"self"``), else prepared from the raw weights once and kept."""
+        if draft_arch not in self._draft_params:
+            self._draft_params[draft_arch] = self._prepared(
+                self._raw_params, draft_arch)
+        return self._draft_params[draft_arch]
+
+    def draft_step(self, draft_arch: ArchConfig, cur: np.ndarray,
+                   mask: np.ndarray, offsets: np.ndarray) -> np.ndarray:
+        """One greedy decode dispatch of ``draft_arch`` (same weights,
+        shared cache) for the lanes in ``mask``, feeding ``cur[i]`` at
+        cache offset ``offsets[i]``; the other lanes feed 0 and keep their
+        caches. Returns the drafted ids (one fetch)."""
+        toks = np.zeros((self.cfg.batch_slots, 1), np.int64)
+        toks[mask, 0] = cur[mask]
+        logits, self.cache = decode_step(
+            self._draft_params_of(draft_arch), self._snapshot(toks),
+            draft_arch, self.cache, self._snapshot(offsets.astype(np.int64)),
+            active=self._snapshot(mask))
+        self.stats["draft_dispatches"] += 1
+        return self._fetch(torch.argmax(logits, dim=-1).to(torch.int32))
+
+    def _chunk_tokens(self, chunk: np.ndarray) -> torch.Tensor:
+        """``chunk`` (B, k) right-padded with zeros to its bucket."""
+        b, k = chunk.shape
+        toks = np.zeros((b, self._bucket(k)), np.int64)
+        toks[:, :k] = chunk
+        return self._snapshot(toks)
+
+    def verify_chunk(self, chunk: np.ndarray,
+                     lens: np.ndarray) -> np.ndarray:
+        """Exact greedy verification of ``chunk`` (per lane ``[pending,
+        d_1 .. d_{k-1}]``, ``lens`` valid entries, 0 freezes the lane)
+        through the bucketed prefill: ``prefill_step``'s per-position argmax
+        ids, (B, k), one fetch. Lengths are not committed here."""
+        _, ids, self.cache = prefill_step(
+            self.params, self._chunk_tokens(chunk), self.arch, self.cache,
+            self._snapshot(self.lengths), self._snapshot(lens.astype(
+                np.int64)))
+        self.stats["verify_dispatches"] += 1
+        return self._fetch(ids)[:, :chunk.shape[1]]
+
+    def verify_chunk_sampled(self, chunk: np.ndarray, lens: np.ndarray,
+                             key: Optional[int]):
+        """Rejection-rule verification of ``chunk`` under per-lane
+        temperatures (``_verify_sampled``), lanes at temperature 0 exact
+        greedy. Returns (emitted tokens (B, k), emitted counts (B,)) from
+        one packed fetch."""
+        k = chunk.shape[1]
+        toks = self._chunk_tokens(chunk)
+        eff = self._effective_temps(key)
+        keys = sampling.lane_keys(key if key is not None else 0,
+                                  self._seed, self._ctr)
+        halves = np.array([sampling.split(int(lk), 2) for lk in keys],
+                          dtype=np.uint64) & np.uint64(0xFFFFFFFF)
+        packed = self._verify_sampled(
+            toks, self._snapshot(lens.astype(np.int64)),
+            self._snapshot(halves[:, 0].astype(np.int64)),
+            self._snapshot(halves[:, 1].astype(np.int64)),
+            self._snapshot(eff))
+        self._ctr[(lens > 0) & (eff > 0) & (self._seed >= 0)] += 1
+        self.stats["verify_dispatches"] += 1
+        packed = self._fetch(packed)
+        return packed[:, :k], packed[:, toks.shape[1]]
+
+    def _verify_sampled(self, toks: torch.Tensor, lens: torch.Tensor,
+                        keys_u: torch.Tensor, keys_c: torch.Tensor,
+                        temp: torch.Tensor) -> torch.Tensor:
+        """The reference's ``_verify_raw`` on the device: a chunked prefill
+        over ``[pending, d_1 .. d_{k-1}]`` and the speculative rejection
+        rule. Drafts are greedy (a point proposal), so draft ``d_j`` is
+        accepted with probability ``p(d_j)`` under the target softmax at
+        T; at the first rejection the final token is drawn from ``p``
+        with the rejected token removed, after full acceptance from the
+        next position's ``p`` (the bonus token). Uniforms come from
+        ``keys_u``, the final draw's Gumbel noise from ``keys_c``; lanes
+        with T <= 0 accept exactly the greedy ids. Returns (B, S + 1)
+        int32: the emitted tokens, then their count."""
+        b, s = toks.shape
+        idx = self._snapshot(self.lengths.astype(np.int64))
+        steps = torch.arange(s, device=toks.device)
+        logits, _, self.cache = forward(
+            self.params, toks, self.arch, cache=self.cache, cache_index=idx,
+            positions=idx[:, None] + steps[None, :], chunk_lengths=lens)
+        greedy = torch.argmax(logits, dim=-1)
+        # position j verifies draft toks[:, j + 1] (the last column is
+        # masked off by draft_pos)
+        nxt = torch.cat([toks[:, 1:], toks[:, :1]], dim=1)
+        p = torch.softmax(logits.to(torch.float32)
+                          / temp.clamp(min=1e-6)[:, None, None], dim=-1)
+        q = torch.gather(p, -1, nxt[..., None])[..., 0]
+        u = sampling.uniform(keys_u, s)
+        acc = torch.where((temp > 0)[:, None], u < q, nxt == greedy)
+        draft_pos = steps[None, :] < (lens[:, None] - 1)
+        run = torch.cumprod(torch.where(draft_pos, acc, True).to(
+            torch.int32), dim=1)
+        m = torch.sum(run * draft_pos.to(torch.int32), dim=1)       # (B,)
+        rows = torch.arange(b, device=toks.device)
+        row = logits[rows, m]
+        rejected = m < (lens - 1)
+        d_rej = nxt[rows, m]
+        vocab = torch.arange(row.shape[-1], device=toks.device)
+        row_f = torch.where(rejected[:, None] & (vocab == d_rej[:, None]),
+                            torch.tensor(-1e30, device=toks.device),
+                            row.to(torch.float32))
+        final = torch.where(temp > 0, sampling.select(row_f, temp, keys_c),
+                            torch.argmax(row, dim=-1).to(torch.int32))
+        emitted = torch.where(steps[None, :] < m[:, None], nxt,
+                              torch.zeros_like(nxt))
+        emitted = torch.where(steps[None, :] == m[:, None],
+                              final[:, None].to(nxt.dtype), emitted)
+        return torch.cat([emitted, (m + 1)[:, None].to(nxt.dtype)],
+                         dim=1).to(torch.int32)
+
+    def repair_chunk(self, chunk: np.ndarray, lens: np.ndarray,
+                     index: np.ndarray) -> None:
+        """After ``spec_restore`` rolled the partially accepted lanes back,
+        re-feed each one's accepted prefix (``lens[i]`` leading tokens of
+        ``chunk``, 0: frozen) at its pre-verify offset ``index``. No fetch:
+        acceptance already knows every token."""
+        _, _, self.cache = prefill_step(
+            self.params, self._chunk_tokens(chunk), self.arch, self.cache,
+            self._snapshot(index.astype(np.int64)),
+            self._snapshot(lens.astype(np.int64)))
+        self.stats["repair_dispatches"] += 1
+
     # ------------------------------------------------------------ energy
     def energy_per_token(self) -> Optional[dict]:
         """Decode-phase energy report of the served arch: the ledger of one
@@ -559,8 +743,9 @@ class Engine:
     @staticmethod
     def _fetch(ids_dev: torch.Tensor) -> np.ndarray:
         """The single device→host transfer of a dispatch that needs one: a
-        (batch_slots,) int32 id array per decode step and per first-token
-        selection."""
+        (batch_slots,) int32 id array per decode or draft step and per
+        first-token selection, a (batch_slots, bucket[+1]) int32 array per
+        speculative verify; a repair crosses nothing."""
         return ids_dev.cpu().numpy()
 
 
@@ -575,8 +760,7 @@ def energy_report(arch: ArchConfig, *, batch: int = 1,
     at its site's resolved design. The top-level keys alias the decode
     phase; ``phases`` holds every phase per site. ``seed`` / ``n_cols``
     configure the Monte-Carlo ENOB solve, which draws on ``device`` (None:
-    the card). Raises ``NotImplementedError`` for RG-LRU and SSM archs,
-    whose train forward is not ported yet."""
+    the card)."""
     if not arch.cim.enabled:
         return {"enabled": False}
     phases = costs.phase_report(arch, batch=batch,

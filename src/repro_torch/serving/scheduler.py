@@ -22,10 +22,11 @@ Per-request knobs enter through ``SamplingParams``
 (``submit(prompt, params=...)``; legacy ``max_new_tokens``/``eos_id``
 kwargs convert under a DeprecationWarning), and every decode iteration
 emits a typed ``RequestOutput`` stream that the scheduler consumes
-instead of poking the slot->token dict. Speculative decode
-(``Scheduler(..., spec=...)``) is not ported yet (ROADMAP item 8c) and
-raises; the virtual clock already charges its dispatch counters, which
-stay at 0.
+instead of poking the slot->token dict. ``Scheduler(..., spec=
+SpecConfig(...))`` swaps the engine's step for
+``serving.speculative.SpecDecoder`` iterations (several tokens a lane);
+the virtual clock charges draft, verify and repair dispatches one unit
+each.
 
 Sampling keys are ``serving.sampling`` keys (Python ints): ``step(key)``
 splits one for the prefills and one for the decode, and folds each
@@ -227,10 +228,23 @@ class Scheduler:
             raise ValueError(
                 "scheduler requires prefill_mode='bucketed' (the token "
                 "oracle has no chunk seam to interleave through)")
+        # speculative decode: a SpecConfig (or a SpecDecoder over this
+        # engine) replaces the engine's step
+        self._spec = None
         if spec is not None:
-            raise NotImplementedError(
-                "speculative decode (spec=) is not ported yet: ROADMAP "
-                "item 8c")
+            from repro_torch.serving.speculative import (SpecConfig,
+                                                         SpecDecoder)
+            if isinstance(spec, SpecDecoder):
+                if spec.engine is not engine:
+                    raise ValueError(
+                        "SpecDecoder is bound to a different engine")
+                self._spec = spec
+            elif isinstance(spec, SpecConfig):
+                self._spec = SpecDecoder(engine, spec)
+            else:
+                raise ValueError(
+                    f"spec must be a SpecConfig or SpecDecoder, got "
+                    f"{spec!r}")
         self.engine = engine
         self.cfg = cfg or SchedulerConfig()
         if self.cfg.admission not in ("fifo", "shortest_prompt"):
@@ -414,7 +428,8 @@ class Scheduler:
         return spent
 
     def _decode(self, now: float, key: Optional[int]) -> dict:
-        result = self.engine.step(key)
+        result = (self._spec.step(key) if self._spec is not None
+                  else self.engine.step(key))
         self._last_result = result
         self.stats["decode_steps"] += 1
         wall = time.perf_counter()
@@ -568,8 +583,8 @@ class Scheduler:
             "prefill_tokens_saved": self.engine.stats["prefix_hit_tokens"],
             "recompute_tokens_saved": self.stats["recompute_tokens_saved"],
             "admission_reorders": self.stats["admission_reorders"],
-            # speculative-decode counters (0 until speculative decode is
-            # ported): exact under StepClock, like the other leaves
+            # speculative-decode counters (all 0 without spec=): exact
+            # under StepClock, like the other leaves
             "draft_dispatches": self.engine.stats["draft_dispatches"],
             "verify_dispatches": self.engine.stats["verify_dispatches"],
             "repair_dispatches": self.engine.stats["repair_dispatches"],
@@ -639,9 +654,8 @@ class StepClock:
 
 def _dispatch_count(eng: Engine) -> int:
     """Total dispatches the engine has issued — the virtual clock's cost
-    unit. Speculative draft/verify/repair dispatches (0 until speculative
-    decode is ported) cost a clock unit each, like a decode step or a
-    prefill chunk."""
+    unit. Speculative draft/verify/repair dispatches cost a clock unit
+    each, like a decode step or a prefill chunk."""
     s = eng.stats
     return (s["prefill_dispatches"] + s["decode_steps"]
             + s["draft_dispatches"] + s["verify_dispatches"]

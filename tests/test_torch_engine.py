@@ -207,19 +207,25 @@ def test_one_fetch_per_step_and_per_first_token(params, monkeypatch):
 
 
 def test_engine_refuses_what_is_not_ported(params):
-    """Speculative decode is not ported: the scheduler refuses ``spec=``
-    and the engine has none of the reference's speculative seams; the
-    engine still refuses a prompt that cannot decode and a full batch."""
+    """Once the refusal of speculative decode, now the reference's own
+    refusal: the scheduler takes a ``SpecConfig`` or ``SpecDecoder`` and
+    raises the reference's ``ValueError`` for anything else, and the
+    engine has the reference's six speculative seams; the engine still
+    refuses a prompt that cannot decode and a full batch."""
+    from repro.serving.scheduler import Scheduler as JaxScheduler
     from repro_torch.serving.scheduler import Scheduler
 
-    _, tp = params
+    jp, tp = params
     eng = teng.Engine(TARCH, tp, teng.ServeConfig(batch_slots=1, max_ctx=16),
                       device="cpu")
-    with pytest.raises(NotImplementedError, match="8c"):
-        Scheduler(eng, spec=object())
+    jax_eng = jeng.Engine(JARCH, jp, jeng.ServeConfig(batch_slots=1,
+                                                      max_ctx=16))
+    for sched, e in ((Scheduler, eng), (JaxScheduler, jax_eng)):
+        with pytest.raises(ValueError, match="SpecConfig or SpecDecoder"):
+            sched(e, spec=object())
     for seam in ("spec_snapshot", "spec_restore", "draft_step",
                  "verify_chunk", "verify_chunk_sampled", "repair_chunk"):
-        assert hasattr(jeng.Engine, seam) and not hasattr(eng, seam)
+        assert hasattr(jeng.Engine, seam) and callable(getattr(eng, seam))
     with pytest.raises(ValueError, match="max_ctx"):
         eng.add_request(list(range(16)))
     eng.add_request([1, 2, 3])

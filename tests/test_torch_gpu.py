@@ -8,8 +8,11 @@ generators draw different streams), and the energy model with a card
 present (the paper's ADC claims on a CUDA generator, the ledger's ``meta``
 trace, the engine's pJ/token, ``grmac_matmul`` refusing ``meta``), the
 sampler on the card against the CPU, prefix-cache snapshots on the card,
-and the scheduler's streams through the kernel against the plain
-version's.
+the scheduler's streams through the kernel against the plain version's,
+speculative decode's snapshots (copies) and its streams through the
+kernel against the plain version's, and one train step's loss and
+gradients through the kernel (its per-call route, under remat) against
+the plain version's.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. This file imports no JAX, so it also runs on the
@@ -23,6 +26,8 @@ in the kernel's order, not the plain version's.
 import pytest
 
 torch = pytest.importorskip("torch")
+
+import numpy as np  # noqa: E402
 
 DESIGNS = ["decode", "prefill"]
 GRANULARITIES = ["row", "conv", "unit"]
@@ -691,3 +696,111 @@ def test_scheduler_streams_through_the_kernel_equal_the_plain_version():
                      {k: v for k, v in m.items()
                       if not k.endswith(("_ms", "_s"))}))
     assert runs[0] == runs[1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["recurrentgemma-9b", "mamba2-1.3b"])
+def test_spec_snapshot_on_the_card_is_a_copy(name):
+    """``spec_snapshot`` clones: zeroing a live lane's rings and states
+    after it leaves the snapshot unchanged, and ``spec_restore`` writes the
+    captured lane back into that lane only."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    arch = get_config(name).reduced()
+    eng = Engine(arch, init_params(arch, seed=0),
+                 ServeConfig(batch_slots=2, max_ctx=64))
+    for prompt in ([3, 1, 4, 1, 5, 9, 2, 6], [2, 7, 1, 8]):
+        eng.add_request(prompt)
+    eng.step()
+    snap = eng.spec_snapshot()
+    assert snap and all(t.is_cuda for layer in snap.values()
+                        for t in layer.values())
+    kept = {i: {k: t.clone() for k, t in layer.items()}
+            for i, layer in snap.items()}
+    other = {i: {k: t[1].clone() for k, t in eng.cache["layers"][i].items()}
+             for i in snap}
+    eng._reset_slot_state(0)
+    for i, layer in snap.items():
+        assert all(torch.equal(t, kept[i][k]) for k, t in layer.items())
+    eng.step()                                   # lane 1 moves on
+    moved = {i: {k: t[1].clone() for k, t in eng.cache["layers"][i].items()}
+             for i in snap}
+    eng.spec_restore(snap, np.array([True, False]))
+    for i in snap:
+        for k, t in eng.cache["layers"][i].items():
+            assert torch.equal(t[0], kept[i][k][0])
+            assert torch.equal(t[1], moved[i][k])
+    assert any(not torch.equal(moved[i][k], other[i][k])
+               for i in snap for k in moved[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("draft", ["digital", "self"])
+def test_spec_streams_through_the_kernel_equal_the_plain_version(draft):
+    """Speculative decode on the reduced paper config (GR-MAC) and on the
+    reduced mamba2 in GR-MAC mode (rollbacks), one sampled seeded lane:
+    the kernel's streams and counters equal the plain version's."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import (Engine, SamplingParams, ServeConfig,
+                                     SpecConfig, SpecDecoder)
+
+    for name in ("paper-cim-120m", "mamba2-1.3b"):
+        arch = get_config(name).reduced()
+        arch = arch.replace(cim=arch.cim.with_mode("grmac"))
+        params = init_params(arch, seed=0)
+        runs = []
+        for backend in (None, "ref"):
+            eng = Engine(arch, params, ServeConfig(
+                batch_slots=3, max_ctx=64, cim_backend=backend))
+            for i, p in enumerate(([3, 1, 4, 1, 5], [2, 7, 1, 8, 2, 8],
+                                   [9, 9, 8])):
+                eng.add_request(p, params=SamplingParams(
+                    temperature=0.8 * (i == 2), seed=i))
+            dec = SpecDecoder(eng, SpecConfig(k=4, draft=draft))
+            for _ in range(5):
+                dec.step()
+            runs.append(([list(t) for t in eng.tokens], dict(eng.stats)))
+        assert runs[0] == runs[1]
+        assert runs[0][1]["spec_steps"] == 5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["paper-cim-120m", "mamba2-1.3b"])
+def test_train_step_through_the_kernel_equals_the_plain_version(name):
+    """One train step's loss and gradients of a reduced config in GR-MAC
+    mode under remat: the kernel's per-call route and the plain version
+    give the same loss (the forwards are bitwise equal) and gradients
+    within 1e-5 of each tensor's largest entry (the backward is the same
+    plain torch, deterministic algorithms on)."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_params, train_loss
+    from repro_torch.tree import tree_leaves, tree_map
+
+    arch = get_config(name).reduced().replace(remat=True)
+    arch = arch.replace(cim=arch.cim.with_mode("grmac"))
+    params = init_params(arch, seed=0)
+    batch = SyntheticLM(DataConfig(global_batch=2, seq_len=32,
+                                   vocab_size=arch.vocab_size)).batch_at(0)
+    out = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for backend in ("auto", "ref"):
+            a = arch.replace(cim=arch.cim.with_backend(backend))
+            leaves = tree_map(lambda t: t.detach().requires_grad_(True),
+                              params)
+            total, metrics = train_loss(leaves, batch, a)
+            out.append((float(metrics["loss"].detach()), torch.autograd.grad(
+                total, tree_leaves(leaves), materialize_grads=True)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (lk, gk), (lr, gr) = out
+    assert lk == lr
+    for a, b in zip(gk, gr):
+        assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())

@@ -44,7 +44,8 @@ def test_forbidden_import_pattern():
 
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.serving, "
-            "repro_torch.convert, repro_torch.kernels.grmac_matmul; "
+            "repro_torch.convert, repro_torch.kernels.grmac_matmul, "
+            "repro_torch.training, repro_torch.data; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")

@@ -158,18 +158,30 @@ def test_decode_active_mask_freezes_lanes(params):
 
 
 def test_unported_block_kinds_raise():
-    """What stays unported raises: the train path (no cache) of RG-LRU and
-    SSM blocks and ``train_loss`` (the training slice); the engine refuses
-    embedding-input models, as the reference's does (they run through
-    ``prefill_step`` / ``decode_step``)."""
-    toks = torch.zeros((1, 4), dtype=torch.int64)
-    for name, kind in (("recurrentgemma-9b", "rglru"), ("mamba2-1.3b", "ssm")):
-        arch = torch_get_config(name).reduced()
-        params = torch_init_params(arch, 0, device="cpu")
-        with pytest.raises(NotImplementedError, match=kind):
-            torch_forward(params, toks, arch)
-    with pytest.raises(NotImplementedError, match="training"):
-        torch_train_loss({}, {"inputs": toks, "labels": toks}, TARCH)
+    """Once the refusals of the unported train path, now its agreement with
+    JAX: the forward without a cache of RG-LRU and SSM blocks (reduced
+    recurrentgemma / mamba2, GR-MAC row) and ``train_loss``, within ATOL
+    (``tests/test_torch_train_model.py`` holds the gradients); the engine
+    still refuses embedding-input models, as the reference's does (they
+    run through ``prefill_step`` / ``decode_step``)."""
+    from repro.models import train_loss as jax_train_loss
+
+    rng = np.random.default_rng(7)
+    for name in ("recurrentgemma-9b", "mamba2-1.3b"):
+        jarch, tarch, jp, tp = _family(name)
+        jt, tt = _inputs(rng, tarch, (2, 32))
+        jl, _, _ = jax_forward(jp, jt, jarch)
+        tl, _, _ = torch_forward(tp, tt, tarch)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), rtol=0,
+                                   atol=ATOL)
+        assert torch.equal(tl.argmax(-1), _long(jnp.argmax(jl, -1)))
+        labels = np.roll(np.asarray(jt), -1, axis=1)
+        jtot, jm = jax_train_loss(jp, {"inputs": jt, "labels": labels},
+                                  jarch)
+        ttot, tm = torch_train_loss(tp, {"inputs": tt, "labels":
+                                         _long(labels)}, tarch)
+        assert abs(float(ttot) - float(jtot)) <= ATOL
+        assert set(tm) == set(jm) == {"loss", "aux_loss", "total"}
     from repro_torch.serving import Engine, ServeConfig
 
     arch = torch_get_config("musicgen-medium").reduced()

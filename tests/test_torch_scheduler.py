@@ -144,8 +144,9 @@ def test_token_mode_engine_and_speculation_are_refused():
     eng = PKGS[1].engine(prefill_mode="token")
     with pytest.raises(ValueError, match="bucketed"):
         tsched.Scheduler(eng)
-    with pytest.raises(NotImplementedError, match="8c"):
-        tsched.Scheduler(PKGS[1].engine(), spec=object())
+    for pkg in PKGS:       # speculation is ported: the reference's refusal
+        with pytest.raises(ValueError, match="SpecConfig or SpecDecoder"):
+            pkg.sched.Scheduler(pkg.engine(), spec=object())
     with pytest.raises(ValueError, match="admission"):
         tsched.Scheduler(PKGS[1].engine(),
                          tsched.SchedulerConfig(admission="sjf"))
