@@ -120,6 +120,28 @@ seconds:
             shared prefix past its 512-slot rings) and mamba2-1.3b in their
             serve phases, at full width, one request at a time: a prefix
             hit's stream equal to a cold prefill's, the prefix adopted;
+5e. analysis  after ``train``: ``analysis_audit``, the ledger audit
+            (``analysis.op_audit``) of all 11 configs x {prefill, decode,
+            train} at full width on ``meta``: no untagged contraction, no
+            ledger mismatch, ``contracts`` / ``calls`` / ``macs`` equal to
+            ``experiments/audit/audit_report.json``, seconds per trace;
+            ``analysis_sanitize``, ``serve``'s traffic with REPRO_SANITIZE=1
+            through the kernel's sanitizing instantiation (prefill
+            dispatches on the tensor-core design, decode steps on the
+            split-K one) and through the plain version: streams equal to
+            the unsanitized ``serve`` run's, the records of the two equal
+            (kind, tag, count, worst, in order), no nonfinite voltage, the
+            totals per kind and site, a NaN seeded into an ``mlp``
+            projection's input caught there by both, step ms and launches
+            a step with the sanitizer on; ``analysis_invariants``, the four
+            invariant drives on the reduced qwen2 / recurrentgemma / mamba2
+            in GR-MAC mode (weights drawn on the CPU, moved) and
+            ``InstrumentedEngine`` over ``serve``'s traffic at full width:
+            one fetch a step and a first token, device->host crossings
+            equal to the fetches, one signature (85 GR-MAC calls) per
+            dispatch key. The ``timing`` phase also times one paper-cim
+            forward's launches through the plain and the sanitizing
+            instantiation in turns (``timing_sanitizing``, M = 8 and 512);
 6. forward_musicgen  musicgen-medium (embedding inputs, GELU MLP) at full
             width and depth: seeded (8, S, 1536) embeddings through
             ``prefill_step`` and decode steps, through the kernel and
@@ -218,10 +240,10 @@ def ptxas_summary(log: str) -> list:
     """One line per compiled kernel instance from nvcc's -Xptxas -v."""
     out, name, spills = [], None, ""
     for line in log.splitlines():
-        m = re.search(r"(decode|prefill)_kernelI((?:Li-?\d+E)+)E", line)
+        m = re.search(r"(decode|prefill)_kernelI((?:L[ib]-?\d+E)+)E", line)
         if "Compiling entry function" in line and m:
             name = m.group(1) + "<" + ",".join(
-                re.findall(r"Li(-?\d+)E", m.group(2))) + ">"
+                re.findall(r"L[ib](-?\d+)E", m.group(2))) + ">"
         elif "spill stores" in line:
             spills = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -477,6 +499,69 @@ def energy_phase(dev, card: str) -> None:
         fail(f"energy: ledger op counts differ from the record {bad}")
 
 
+AUDIT_WORKERS = 6      # processes of the audit (the card's host has 8 cores)
+
+
+def audit_one(name: str, phase: str) -> dict:
+    """One (config, phase) audit against the golden, in a worker process
+    (it runs on ``meta``, on the host's CPU alone)."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.analysis.op_audit import audit_phase
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    res = audit_phase(get_config(name), phase)
+    want = json.loads((ROOT / "experiments" / "audit" / "audit_report.json")
+                      .read_text())["configs"][name]["phases"][phase]
+    ok = (res["untagged"] == 0 and res["ledger_mismatches"] == 0
+          and all(res[k] == want[k] for k in ("contracts", "calls", "macs")))
+    return {"config": name, "phase": phase,
+            "seconds": time.perf_counter() - t0,
+            "calls": res["calls"], "macs": res["macs"],
+            "contractions": res["dot_generals"],
+            "tagged_values": res["tagged_values"],
+            "declared_digital": res["declared_digital"],
+            "transposes": res["transposes"], "ok": ok,
+            "details": None if ok else (res["untagged_details"][:2],
+                                        res["ledger_mismatch_details"][:2])}
+
+
+def analysis_audit(card: str) -> None:
+    """The ledger audit (``analysis.op_audit``) of all 11 configs x
+    {prefill, decode, train} at full width, traced on ``meta``, in
+    ``AUDIT_WORKERS`` spawned processes (the recurrent prefills first:
+    their per-token loops are the longest traces): every contraction
+    tagged or declared digital (``untagged == 0``), every contract traced
+    as often as the ledger records it (``ledger_mismatches == 0``), and
+    ``contracts``, ``calls`` and ``macs`` equal to the JAX package's
+    committed ``experiments/audit/audit_report.json``."""
+    import multiprocessing
+
+    from repro_torch.configs import list_configs
+
+    slow = ("mamba2-1.3b", "recurrentgemma-9b")
+    cases = sorted(((name, phase) for name in list_configs()
+                    for phase in ("prefill", "decode", "train")),
+                   key=lambda c: (c != (slow[0], "prefill"),
+                                  c != (slow[1], "prefill"), c[1] != "train"))
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(AUDIT_WORKERS) as pool:
+        rows = pool.starmap(audit_one, cases)
+    wall = time.perf_counter() - t0
+    bad = [(r["config"], r["phase"], r["details"]) for r in rows
+           if not r["ok"]]
+    emit({"phase": "analysis_audit", "audits": len(rows),
+          "workers": AUDIT_WORKERS, "wall_seconds": wall,
+          "equal_to_golden": sum(r["ok"] for r in rows),
+          "seconds_per_trace": {f"{r['config']}/{r['phase']}": r["seconds"]
+                                for r in rows},
+          "rows": rows, "card": card})
+    if bad:
+        fail(f"analysis_audit: {len(bad)} audits differ from the golden or "
+             f"leak: {bad}")
+
+
 def main() -> int:
     # The plain-version oracles allocate and free (K / n_r, M, N) block
     # temporaries of several GB between small ones; expandable segments
@@ -502,8 +587,9 @@ def main() -> int:
                                           FP8_E4M3, FPFormat, quantize)
     from repro_torch.core.cim_config import CIMConfig
     from repro_torch.kernels.dispatch import grmac_matmul
-    from repro_torch.kernels.grmac_matmul import (DESIGNS, build,
-                                                  grmac_matmul_cuda)
+    from repro_torch.analysis import sanitize
+    from repro_torch.kernels.grmac_matmul import (DESIGNS, INSTANTIATIONS,
+                                                  build, grmac_matmul_cuda)
     from repro_torch.kernels.ops import cim_matmul
     from repro_torch.kernels.packed import pack_weight, unpack_weight
     from repro_torch.data import DataConfig, SyntheticLM
@@ -532,6 +618,8 @@ def main() -> int:
     def reset_counts():
         grmac_matmul_cuda.launches = 0
         grmac_matmul_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
+        grmac_matmul_cuda.launches_by_instantiation = dict.fromkeys(
+            INSTANTIATIONS, 0)
 
     # ---------------------------------------------------------------- env
     require_full_f32()
@@ -772,6 +860,47 @@ def main() -> int:
     # paper-cim-120m's train forward: batch 8 x seq 256 rows per projection
     totals["train_forward"] = time_forward("train_forward", paper, 8 * 256,
                                            None, pack=True)
+
+    def time_sanitizing(path, arch, m):
+        """Graph ms of one forward's row launches at M = m through the plain
+        and the sanitizing instantiation, in turns (plain, sanitizing,
+        sanitizing, plain; each the mean of its two), summed over the
+        forward's launches."""
+        tot = dict.fromkeys(INSTANTIATIONS, 0.0)
+        shapes = {}
+        for name, k, n, per_fwd in projections(arch):
+            shapes[(k, n)] = shapes.get((k, n), 0) + per_fwd
+        for (k, n), per_fwd in shapes.items():
+            copies = max(1, math.ceil(2 * 50e6 / (k * n / 2)))
+            xs = [operands(m, k, n, fmt_w)[0] for _ in range(4)]
+            amaxs = [torch.amax(torch.abs(x)) for x in xs]
+            ws = [pack_weight(torch.randn((k, n), generator=gen, device=dev),
+                              fmt_w, n_r) for _ in range(copies)]
+
+            def call(i):
+                return grmac_matmul_cuda(xs[i % 4], ws[i % copies],
+                                         amaxs[i % 4], tag="timing", **kw)
+
+            t = {inst: [] for inst in INSTANTIATIONS}
+            for inst in ("plain", "sanitizing", "sanitizing", "plain"):
+                if inst == "sanitizing":
+                    os.environ[sanitize.ENV_VAR] = "1"
+                try:
+                    t[inst].append(graph_ms(call, 20))
+                finally:
+                    os.environ.pop(sanitize.ENV_VAR, None)
+                    sanitize.clear()
+            for inst in INSTANTIATIONS:
+                tot[inst] += per_fwd * float(np.mean(t[inst]))
+            del xs, ws, amaxs
+            torch.cuda.empty_cache()
+        emit({"phase": "timing_sanitizing", "path": path, "arch": arch.name,
+              "m": m, "per_forward_graph_ms": tot,
+              "launches_per_forward": per_forward(arch), "card": card})
+        return tot
+
+    totals["sanitizing"] = {key: time_sanitizing(key, paper, m)
+                            for key, m in (("decode", 8), ("prefill", 512))}
     seconds("timing")
 
     # -------------------------------------------------------------- serve
@@ -860,6 +989,7 @@ def main() -> int:
                 torch.cuda.max_memory_allocated(), last)
 
     launches_by_path = {}
+    served_streams = {}       # each serve path's streams, before its profile
     by_design_total = dict.fromkeys(DESIGNS, 0)
     step_median = {}          # decode step median ms of each serve path
 
@@ -905,6 +1035,7 @@ def main() -> int:
         dispatches = (engine.stats["prefill_dispatches"]
                       + engine.stats["decode_steps"])
         streams = [list(t) for t in engine.tokens]
+        served_streams[path] = streams
         emit({"phase": path, "arch": arch.name, "batch_slots": SLOTS,
               **serve_kw, **(extra or {}),
               "prompt_lens": [len(p) for p in prompts],
@@ -1677,6 +1808,177 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # ----------------------------------------------------------- analysis
+    from repro_torch.analysis import invariants as inv
+
+    def pending_calls():
+        """Each pending sanitized GR-MAC call's five numbers (nonfinite,
+        overflow, worst |v|, gain count, worst span) with its tag, read
+        before the records are: a kernel call leaves one buffer, a plain
+        call a values record and (row, unit) a span record."""
+        out = []
+        for tag, kinds, stats, from_kernel in sanitize._PENDING:
+            row = stats.cpu().numpy()
+            if from_kernel:
+                worst = float(np.array([row[2]], np.int64).astype(
+                    np.uint32).view(np.float32)[0])
+                out.append((tag, int(row[0]), int(row[1]), worst,
+                            int(row[3]), int(row[4])))
+            elif "nonfinite" in kinds:
+                out.append((tag, int(row[0]), int(row[1]), float(row[2]),
+                            0, 0))
+            else:               # the span record of the call before
+                out[-1] = out[-1][:4] + (int(row[3]), int(row[4]))
+        return out
+
+    def analysis_sanitize(arch, params, prompts, streams):
+        """``serve``'s traffic with REPRO_SANITIZE=1 through the kernel (its
+        sanitizing instantiation, both designs) and through the plain
+        version: token streams equal to the unsanitized run's, the records
+        of the two equal (kind, tag, count, worst, in order), no nonfinite
+        voltage; a NaN seeded into one projection's input caught at that
+        site by both; step ms with the sanitizer on."""
+        runs = {}
+        os.environ[sanitize.ENV_VAR] = "1"
+        try:
+            for backend in (None, "ref"):
+                sanitize.clear()
+                reset_counts()
+                engine, prefill_ms, decode_ms, _, last = run_engine(
+                    arch, params, prompts, 32, dict(max_ctx=512), backend)
+                calls = pending_calls()
+                runs[backend] = dict(
+                    streams=[list(t) for t in engine.tokens],
+                    calls=calls,
+                    records=[dict(r) for r in sanitize.VIOLATIONS],
+                    launches=dict(grmac_matmul_cuda.launches_by_instantiation),
+                    by_design=dict(grmac_matmul_cuda.launches_by_design),
+                    prefill_ms=prefill_ms,
+                    decode_ms_median=float(np.median(decode_ms)))
+                if backend is None:
+                    launches_by_path["analysis_sanitize"] = \
+                        grmac_matmul_cuda.launches
+                    for d in DESIGNS:
+                        by_design_total[d] += \
+                            grmac_matmul_cuda.launches_by_design[d]
+                    prof = profiled("serve_sanitize", "decode_step",
+                                    lambda: [engine.step() for _ in range(3)],
+                                    3)
+                del engine, last
+                gc.collect()
+                torch.cuda.empty_cache()
+            # a NaN in one projection's input, the engine's shapes (M = 8)
+            cfg = arch.cim.for_site("mlp")
+            x = torch.randn((SLOTS, arch.d_model), generator=gen, device=dev)
+            x[3, 100] = float("nan")
+            w = params["layers"][0]["ffn"]["wi"]["w"]
+            nan_recs = {}
+            for backend in (None, "ref"):
+                sanitize.clear()
+                cim_matmul(x, pack_weight(w, cfg.fmt_w, cfg.n_r)
+                           if backend is None else w, cfg, site="mlp",
+                           backend=backend)
+                nan_recs[backend] = [dict(r) for r in sanitize.VIOLATIONS]
+        finally:
+            os.environ.pop(sanitize.ENV_VAR, None)
+            sanitize.clear()
+        k_run, r_run = runs[None], runs["ref"]
+        recs = k_run["records"]
+        totals_ = {}
+        for r in recs:
+            kind = totals_.setdefault(r["kind"], {"records": 0, "count": 0,
+                                                  "worst": 0.0, "sites": {}})
+            kind["records"] += 1
+            kind["count"] += r["count"]
+            kind["worst"] = max(kind["worst"], r["worst"])
+            kind["sites"][r["tag"]] = kind["sites"].get(r["tag"], 0) \
+                + r["count"]
+        nonfinite = sum(r["count"] for r in recs if r["kind"] == "nonfinite")
+        calls = k_run["calls"]
+        spans = [c[5] for c in calls]
+        checks = {
+            "per_call_numbers_equal": calls == r_run["calls"]
+            and len(calls) == per_forward(arch) * (len(prompts) + 32),
+            "kernel_streams_equal_unsanitized": k_run["streams"] == streams,
+            "plain_streams_equal_unsanitized": r_run["streams"] == streams,
+            "records_equal": recs == r_run["records"],
+            "all_sanitizing": k_run["launches"]["plain"] == 0
+            and k_run["launches"]["sanitizing"] > 0,
+            "both_designs": all(k_run["by_design"][d] > 0 for d in DESIGNS),
+            "nonfinite_zero": nonfinite == 0,
+            "nan_caught_by_both": bool(
+                nan_recs[None] and nan_recs[None] == nan_recs["ref"]
+                and nan_recs[None][0]["kind"] == "nonfinite"
+                and nan_recs[None][0]["tag"] == "mlp"),
+        }
+        emit({"phase": "analysis_sanitize", "arch": arch.name,
+              "batch_slots": SLOTS, "decode_steps": 32,
+              "records": len(recs), "totals": totals_,
+              "calls": len(calls),
+              "worst_abs_v": max(c[3] for c in calls),
+              "worst_span": max(spans),
+              "calls_by_worst_span": {str(v): spans.count(v)
+                                      for v in sorted(set(spans))},
+              "first_records": recs[:6], "nan_records": nan_recs[None][:3],
+              "kernel_launches": k_run["launches"],
+              "kernel_launches_by_design": k_run["by_design"],
+              "step_ms_median_sanitize_on": k_run["decode_ms_median"],
+              "step_ms_median_sanitize_off": step_median["serve"],
+              "plain_step_ms_median_sanitize_on": r_run["decode_ms_median"],
+              "cuda_launches_per_step_sanitize_on":
+                  prof["cuda_launches_per"],
+              "cuda_launches_per_step_sanitize_off": STEP_LAUNCHES["serve"],
+              "checks": checks, "card": card})
+        if not all(checks.values()):
+            fail("analysis_sanitize: "
+                 f"{[k for k, v in checks.items() if not v]}")
+
+    def analysis_invariants(arch, params, prompts):
+        """The four invariant drives on the reduced INVARIANT_CONFIGS in
+        GR-MAC mode (weights drawn on the CPU, moved to the card; every
+        projection through the kernel), then ``InstrumentedEngine`` over
+        ``serve``'s traffic at full width: one fetch a step, device->host
+        crossings equal to the fetches, one signature per dispatch key."""
+        drives = {}
+        t0 = time.perf_counter()
+        for fn in ("run_invariants", "run_scheduler_invariants",
+                   "run_prefix_invariants", "run_spec_invariants"):
+            res = getattr(inv, fn)(device=dev, mode="grmac")
+            drives[fn] = {name: ({k: rep[k] for k in ("fetches", "d2h",
+                                                      "steps", "compiles",
+                                                      "signatures")}
+                                 if "error" not in rep else rep)
+                          for name, rep in res["configs"].items()}
+            if res["violations"]:
+                fail(f"analysis_invariants: {fn}: {res['configs']}")
+        drives_s = time.perf_counter() - t0
+        reset_counts()
+        eng = inv.InstrumentedEngine(arch, params, ServeConfig(
+            batch_slots=SLOTS, max_ctx=512), device=dev)
+        for p in prompts:
+            eng.add_request(p)
+        step_ms = []
+        for _ in range(32):
+            t1 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t1))
+        rep = eng.check()
+        fwd = per_forward(arch)
+        ok = (rep["fetches"] == len(prompts) + 32
+              and rep["d2h"] == rep["fetches"]
+              and all(sig[0] == fwd for sig in rep["signatures"].values()))
+        emit({"phase": "analysis_invariants", "drives": drives,
+              "drives_seconds": drives_s, "full_width": {
+                  "arch": arch.name, **rep,
+                  "step_ms_median_instrumented": float(np.median(step_ms))},
+              "ok": ok, "card": card})
+        if not ok:
+            fail(f"analysis_invariants: full width {rep}")
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+
     # paper-cim-120m, the first slice's path, as before
     params = init_params(paper, SEED, device=dev)
     prompts = prompts_of(paper, (5, 8, 12, 17, 24, 33, 40, 60))
@@ -1759,10 +2061,14 @@ def main() -> int:
     serve_spec(paper, params)
     seconds("serve_spec")
     train_paper(paper, params)
+    seconds("train")
+    analysis_audit(card)
+    analysis_sanitize(paper, params, prompts, served_streams["serve"])
+    analysis_invariants(paper, params, prompts)
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    seconds("train")
+    seconds("analysis")
 
     def with_grmac(arch):
         # the default design: row, FP6_E3M2 x FP4_E2M1, n_r 32, ENOB 8
@@ -1936,6 +2242,13 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "checked_vs_plain": True,
         "launches_by_design": by_design_total,
+        # the plain instantiation on every path but analysis_sanitize, the
+        # sanitizing one there
+        "launches_by_instantiation": {
+            "plain": sum(v for k, v in launches_by_path.items()
+                         if k != "analysis_sanitize"),
+            "sanitizing": launches_by_path.get("analysis_sanitize", 0)},
+        "sanitizing_graph_ms_per_forward": totals["sanitizing"],
         # times of the 85 row launches of one paper-cim-120m decode forward
         # (M = 8), the weights packed in 4 bits; the bound at their stored
         # bits. "ms" is device time by CUDA-graph replay; "eager_loop_ms"

@@ -189,10 +189,14 @@ def _meta_lanes(batch: int) -> torch.Tensor:
 
 def phase_trace_spec(arch, phase: str, *, batch: int = 1,
                      ctx: Optional[int] = None, bucket: int = 128,
-                     seq_len: Optional[int] = None) -> tuple:
+                     seq_len: Optional[int] = None,
+                     grad: bool = False) -> tuple:
     """The exact (callable, ``meta`` args) pair a phase trace runs: the
     single source of the traced functions, for the trace functions below
-    and for any audit that must walk the same computation."""
+    and for any audit that must walk the same computation
+    (``analysis.op_audit``). ``grad`` makes the train phase a train step:
+    ``train_loss`` on parameters that require grad, and its backward (the
+    ledger's trace takes the forward only)."""
     from repro_torch.models import decode_step, forward, prefill_step
     if phase == "decode":
         fn = lambda p, t, c, i: decode_step(p, t, arch, c, i)  # noqa: E731
@@ -208,6 +212,20 @@ def phase_trace_spec(arch, phase: str, *, batch: int = 1,
     if phase == "train":
         if seq_len is None:
             seq_len = default_train_seq(arch)
+        if grad:
+            from repro_torch.models import train_loss
+            from repro_torch.tree import tree_map
+
+            def step(p, t, labels):
+                train_loss(p, {"inputs": t, "labels": labels},
+                           arch)[0].backward()
+
+            params = tree_map(
+                lambda a: a.requires_grad_() if a.is_floating_point() else a,
+                _meta_params(arch))
+            labels = torch.zeros((batch, seq_len), dtype=torch.int64,
+                                 device=_META)
+            return step, (params, _meta_inputs(arch, batch, seq_len), labels)
         fn = lambda p, t: forward(p, t, arch)  # noqa: E731
         return fn, (_meta_params(arch), _meta_inputs(arch, batch, seq_len))
     raise ValueError(f"unknown phase {phase!r}")

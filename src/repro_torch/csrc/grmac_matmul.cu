@@ -31,17 +31,19 @@
 //
 // Two designs, chosen per call by the wrapper (a route by shape and
 // format; neither is a fallback of the other):
-//   grmac_decode.cu   small M, and any M for formats bf16 cannot hold: an
+//   grmac_decode.cuh  small M, and any M for formats bf16 cannot hold: an
 //                     f32-FMA body, weight streaming, split-K over the
 //                     analog columns across a thread-block cluster,
 //                     deterministic reduction through distributed shared
 //                     memory;
-//   grmac_prefill.cu  larger M, formats exact in bf16: the values dot (and
+//   grmac_prefill.cuh larger M, formats exact in bf16: the values dot (and
 //                     unit granularity's gain product) on the tensor cores
 //                     with mma.sync, cp.async double buffering, split-K
 //                     across a cluster where the tiles under-fill the card.
-// Each source is compiled by its own nvcc process and the objects are
-// linked into one library with this C interface.
+// Each design compiles in two sources, its plain instantiation
+// (grmac_{decode,prefill}.cu) and its sanitizing one (*_san.cu); each
+// source is compiled by its own nvcc process and the objects are linked
+// into one library with this C interface.
 //
 // For FP6_E3M2 x FP4_E2M1 every product is a multiple of 2^-13 and every
 // n_r-deep sum fits in 18 bits, and every block term is a multiple of
@@ -58,13 +60,16 @@
 // of max(n_r, 32), lut its code -> value table of 2^w_bits floats; amax and
 // sw are float32 device scalars. n_r is one of 16, 32, 64, 128;
 // granularity is 0 conv, 1 row, 2 unit; design 0 decode, 1 prefill.
-// Launches on `stream` and returns the cudaError_t of the launch (0 on
-// success).
+// san is null (the plain instantiation) or a zeroed 5-entry uint64 device
+// buffer that the sanitizing instantiation adds its counts to
+// (grmac_common.cuh). Launches on `stream` and returns the cudaError_t of
+// the launch (0 on success).
 extern "C" int grmac_matmul_packed(
     const float* x, const void* codes, const float* lut, const float* amax,
     const float* sw, float* out, int M, int N, int K, int k_store, int n_r,
     int code_bits, int granularity, int design, int x_n_exp, int x_n_man,
-    int w_n_exp, int w_n_man, float delta, float inv_delta, void* stream) {
+    int w_n_exp, int w_n_man, float delta, float inv_delta, void* san,
+    void* stream) {
   using namespace grmac;
   const int step = n_r > 32 ? n_r : 32;
   if (n_r <= 0 || M <= 0 || N <= 0 || K <= 0 || k_store < K ||
@@ -94,11 +99,16 @@ extern "C" int grmac_matmul_packed(
   p.splits = 1;
   p.wcols = 1;
   p.span = 0;
+  p.san = static_cast<unsigned long long*>(san);
   if (p.n_codes > 256) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (design) {
-    case kDecode: return launch_decode(p, n_r, granularity, s);
-    case kPrefill: return launch_prefill(p, n_r, granularity, s);
+    case kDecode:
+      return p.san ? launch_decode_san(p, n_r, granularity, s)
+                   : launch_decode(p, n_r, granularity, s);
+    case kPrefill:
+      return p.san ? launch_prefill_san(p, n_r, granularity, s)
+                   : launch_prefill(p, n_r, granularity, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.formats import FPFormat
 
 from .grmac_matmul import grmac_matmul_cuda
@@ -69,11 +70,15 @@ def grmac_matmul(
     granularity: str = "row",
     backend: Optional[str] = None,
     design: Optional[str] = None,
+    tag: str = "",
 ) -> torch.Tensor:
     """(M, K) @ (K, N) GR-MAC matmul; float32 out.
 
     ``x`` pre-scaled to [-1, 1]; ``wq`` already on the weight format grid.
     ``design`` forces one of the kernel's designs (None: its own choice).
+    ``tag`` names the call in the sanitizer's records: with
+    ``REPRO_SANITIZE`` set (read on every call) the plain version checks,
+    or the kernel launches its sanitizing instantiation.
     """
     b = resolve_backend(backend)
     if x.device.type not in ("cpu", "cuda"):
@@ -84,11 +89,11 @@ def grmac_matmul(
         return grmac_matmul_ref(
             pad_to_multiple(x, 1, n_r), pad_to_multiple(wq, 0, n_r),
             fmt_x=fmt_x, fmt_w=fmt_w, n_r=n_r, enob=enob,
-            granularity=granularity)
+            granularity=granularity, sanitize=sanitize.enabled(), tag=tag)
     one = torch.ones((), dtype=torch.float32, device=wq.device)
     packed = pack_quantized(wq.to(torch.float32), one, fmt_w, n_r)
     if not torch.equal(unpack_weight(packed)[:wq.shape[0]], wq):
         raise ValueError(f"wq is not on the {fmt_w.name} grid")
     return grmac_matmul_cuda(x.to(torch.float32).contiguous(), packed, one,
                              fmt_x=fmt_x, enob=enob, granularity=granularity,
-                             design=design)
+                             design=design, tag=tag)

@@ -1,8 +1,9 @@
 """Build, bind and launch the hand-written Hopper GR-MAC kernel.
 
 The kernel is ``csrc/grmac_matmul.cu`` and the two designs it routes to
-(``grmac_decode.cu``, ``grmac_prefill.cu``; the headers say what bounds
-each and how it is laid out). It replaces
+(``grmac_decode.cuh``, ``grmac_prefill.cuh``; the headers say what bounds
+each and how it is laid out), each compiled in a plain and a sanitizing
+instantiation (``grmac_{decode,prefill}.cu`` and ``*_san.cu``). It replaces
 ``repro.kernels.grmac_matmul.grmac_matmul_pallas``. The first time it is
 needed, each source is compiled by its own ``nvcc`` process for
 ``sm_90a``, all at once, and the objects are linked into one shared
@@ -18,7 +19,12 @@ applies the pre- and post-scale itself. The kernel indexes in 32 bits, so
 a call whose x or output reaches 2**31 elements is launched in row chunks
 that stay below it (rows are independent, and every chunk reads the one
 absmax: the result is the unchunked one). ``grmac_matmul_cuda.launches``
-counts its launches, ``launches_by_design`` per design.
+counts its launches, ``launches_by_design`` per design and
+``launches_by_instantiation`` per instantiation: ``plain``, or
+``sanitizing`` when ``REPRO_SANITIZE`` is set (read on every call; the
+checks of ``analysis.sanitize``, counted inside the kernel into a 5-entry
+device buffer that this wrapper allocates and zeroes only then, and that
+is read when the records are).
 """
 from __future__ import annotations
 
@@ -36,18 +42,21 @@ from typing import Optional
 
 import torch
 
+from repro_torch.analysis import sanitize
 from repro_torch.core.formats import FPFormat
 from repro_torch.core.mac import adc_delta
 
 from .packed import N_R_SUPPORTED, PackedWeight
 
-__all__ = ["N_R_SUPPORTED", "NVCC_FLAGS", "DESIGNS", "DECODE_MAX_M",
+__all__ = ["N_R_SUPPORTED", "NVCC_FLAGS", "DESIGNS", "INSTANTIATIONS",
+           "DECODE_MAX_M",
            "DECODE_MAX_K", "BuildInfo", "build", "choose_design",
            "grmac_matmul_cuda"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 DESIGNS = ("decode", "prefill")
+INSTANTIATIONS = ("plain", "sanitizing")
 # The switch between the designs. Both split K to fill the card; the decode
 # design (blocks of 8 rows) streams the weights again for every 8 rows,
 # the tensor-core design (blocks of 64 x 64) does not. On the H100 the two
@@ -130,7 +139,8 @@ def build() -> BuildInfo:
     lib = ctypes.CDLL(str(lib_path))
     fn = lib.grmac_matmul_packed
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 12
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     _lib = lib
     _info = BuildInfo(str(lib_path), seconds,
@@ -187,6 +197,7 @@ def grmac_matmul_cuda(
     enob: float = 8.0,
     granularity: str = "row",
     design: Optional[str] = None,
+    tag: str = "",
 ) -> torch.Tensor:
     """(M, K) @ (K, N) GR-MAC matmul on the card; float32 out.
 
@@ -197,7 +208,8 @@ def grmac_matmul_cuda(
     (sx * sw)``. ``design`` (None: ``choose_design`` for the whole M)
     forces one of ``DESIGNS``; the tensor-core design refuses formats bf16
     cannot hold. Where M*K or M*N reaches 2**31 the rows go in chunks, one
-    launch each; the weight itself must stay below 2**31 codes.
+    launch each; the weight itself must stay below 2**31 codes. ``tag``
+    names the call in the sanitizer's records.
     """
     if not isinstance(w, PackedWeight):
         raise TypeError(f"a PackedWeight expected, got {type(w).__name__}")
@@ -235,6 +247,9 @@ def grmac_matmul_cuda(
         build()
     delta, inv_delta = _adc_steps(float(enob))
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    san = (torch.zeros(5, dtype=torch.int64, device=x.device)
+           if sanitize.enabled() else None)
+    inst = INSTANTIATIONS[san is not None]
     fw = w.fmt_w
     stream = torch.cuda.current_stream(x.device).cuda_stream
     # rows per launch: x's and the output's chunks below 2**31 elements, in
@@ -248,7 +263,8 @@ def grmac_matmul_cuda(
                 out.data_ptr() + 4 * r0 * n, mc, n, k, w.k_store, w.n_r,
                 w.code_bits, _GRANULARITY[granularity],
                 DESIGNS.index(design), fmt_x.n_exp, fmt_x.n_man, fw.n_exp,
-                fw.n_man, delta, inv_delta, stream)
+                fw.n_man, delta, inv_delta,
+                None if san is None else san.data_ptr(), stream)
         # the library launches on the current device: make it x's
         if x.device.index == torch.cuda.current_device():
             err = _lib.grmac_matmul_packed(*args)
@@ -260,8 +276,13 @@ def grmac_matmul_cuda(
                                f"({design}): cudaError {err}")
         grmac_matmul_cuda.launches += 1
         grmac_matmul_cuda.launches_by_design[design] += 1
+        grmac_matmul_cuda.launches_by_instantiation[inst] += 1
+    if san is not None:
+        sanitize.defer_kernel(tag, san, spans=granularity != "conv")
     return out
 
 
 grmac_matmul_cuda.launches = 0
 grmac_matmul_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
+grmac_matmul_cuda.launches_by_instantiation = dict.fromkeys(INSTANTIATIONS,
+                                                            0)

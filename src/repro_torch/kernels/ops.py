@@ -34,6 +34,7 @@ runs.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional, Union
 
@@ -42,18 +43,54 @@ import torch
 from repro_torch.core import costs
 from repro_torch.core.cim_config import CIMConfig
 from repro_torch.core.formats import IntFormat, quantize, quantize_any
+from repro_torch.core.scopes import named_scope
 
-from .dispatch import grmac_matmul, resolve_backend
+from .dispatch import grmac_matmul, pad_to_multiple, resolve_backend
 from .grmac_matmul import grmac_matmul_cuda
 from .packed import EPS as _EPS
 from .packed import PackedWeight, pack_weight, unpack_weight
+from .ref import grmac_matmul_ref
 
-__all__ = ["cim_matmul"]
+__all__ = ["cim_matmul", "site_marker", "plain_on_meta"]
+
+_PLAIN_ON_META = [False]
+
+
+def site_marker(site: Optional[str], m: int, k: int, n: int) -> str:
+    """The audit marker naming one ledger contract, in the reference's
+    grammar: parsed back by ``analysis.op_audit`` (site names contain
+    underscores, so the ``_m<digits>`` suffix anchors the parse)."""
+    return f"cim_{site or 'unsited'}_m{m}_k{k}_n{n}"
+
+
+@contextlib.contextmanager
+def plain_on_meta():
+    """Within the block, ``cim_matmul`` on ``meta`` runs the plain
+    version's operations (shapes only) instead of returning an empty
+    tensor: the audit's regime. The ledger traces stay outside it."""
+    _PLAIN_ON_META.append(True)
+    try:
+        yield
+    finally:
+        _PLAIN_ON_META.pop()
+
+
+def _plain_grmac(x: torch.Tensor, wq: torch.Tensor, backend: str, **kw):
+    """The plain GR-MAC: through ``dispatch`` on real tensors; on ``meta``
+    (the audit's regime only) the plain version directly, which
+    ``dispatch`` refuses to take there."""
+    if x.device.type != "meta":
+        return grmac_matmul(x, wq, backend=backend, **kw)
+    n_r = kw["n_r"]
+    return grmac_matmul_ref(pad_to_multiple(x, 1, n_r),
+                            pad_to_multiple(wq, 0, n_r), **kw)
 
 
 def _cim_matmul_2d(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
-                   cfg: CIMConfig, backend: str) -> torch.Tensor:
-    """(M, K) @ (K, N) with CIM numerics (forward only)."""
+                   cfg: CIMConfig, backend: str,
+                   tag: str = "") -> torch.Tensor:
+    """(M, K) @ (K, N) with CIM numerics (forward only); ``tag`` names
+    the site for the sanitizer and never changes numerics."""
     dtype = x.dtype
     x32 = x.to(torch.float32)
     if cfg.mode == "grmac":
@@ -68,13 +105,14 @@ def _cim_matmul_2d(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
                     x32.contiguous(), pw,
                     torch.linalg.vector_norm(x32, float("inf")),
                     fmt_x=cfg.fmt_x, enob=cfg.resolved_enob(),
-                    granularity=cfg.granularity)
+                    granularity=cfg.granularity, tag=tag)
                 return out.to(dtype)
             sx = torch.clamp(torch.amax(torch.abs(x32)), min=_EPS)
             out = grmac_matmul(x32 / sx, unpack_weight(pw), fmt_x=cfg.fmt_x,
                                fmt_w=cfg.fmt_w, n_r=cfg.n_r,
                                enob=cfg.resolved_enob(),
-                               granularity=cfg.granularity, backend=backend)
+                               granularity=cfg.granularity, backend=backend,
+                               tag=tag)
             return (out * (sx * pw.sw)).to(dtype)
     w32 = w.to(torch.float32)
     sx = torch.clamp(torch.amax(torch.abs(x32)), min=_EPS)
@@ -82,20 +120,24 @@ def _cim_matmul_2d(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
     xn = x32 / sx
     wn = w32 / sw
     if cfg.mode == "fakequant":
-        out = quantize_any(xn, cfg.fmt_x) @ quantize(wn, cfg.fmt_w)
+        xq, wq = quantize_any(xn, cfg.fmt_x), quantize(wn, cfg.fmt_w)
+        with named_scope("cim_values"):
+            out = xq @ wq
     elif cfg.mode == "grmac":
-        out = grmac_matmul(
+        out = _plain_grmac(
             xn,
             quantize(wn, cfg.fmt_w),
+            backend,
             fmt_x=cfg.fmt_x,
             fmt_w=cfg.fmt_w,
             n_r=cfg.n_r,
             enob=cfg.resolved_enob(),
             granularity=cfg.granularity,
-            backend=backend,
+            tag=tag,
         )
     else:  # off
-        out = xn @ wn
+        with named_scope("cim_values"):
+            out = xn @ wn
     return (out * (sx * sw)).to(dtype)
 
 
@@ -125,16 +167,18 @@ class _CimMatmulSTE(torch.autograd.Function):
     """CIM forward, straight-through (exact-matmul) backward."""
 
     @staticmethod
-    def forward(ctx, x, w, cfg, backend):
+    def forward(ctx, x, w, cfg, backend, tag):
         ctx.save_for_backward(x, w)
-        return _cim_matmul_2d(x, w, cfg, backend)
+        return _cim_matmul_2d(x, w, cfg, backend, tag)
 
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        gx = (g @ w.T.to(g.dtype)).to(x.dtype)
-        gw = (x.T.to(g.dtype) @ g).to(w.dtype)
-        return gx, gw, None, None
+        # digital by design: the backward never reaches the analog array
+        with named_scope("dig_ste_bwd"):
+            gx = (g @ w.T.to(g.dtype)).to(x.dtype)
+            gw = (x.T.to(g.dtype) @ g).to(w.dtype)
+        return gx, gw, None, None, None
 
 
 def cim_matmul(
@@ -158,18 +202,20 @@ def cim_matmul(
     k = x.shape[-1]
     n = w.shape[-1]
     m = math.prod(lead)
-    costs.record_matmul(site, m, k, n if logical_n is None else logical_n,
-                        eff)
-    if x.device.type == "meta":
+    ledger_n = n if logical_n is None else logical_n
+    costs.record_matmul(site, m, k, ledger_n, eff)
+    if x.device.type == "meta" and not _PLAIN_ON_META[-1]:
         return x.new_empty(*lead, n)
-    if isinstance(w, PackedWeight):
-        _check_packed(w, x, eff)
-    elif eff is None or not eff.enabled:
-        return x @ w
-    backend = resolve_backend(backend or eff.backend)
-    x2 = x.reshape(m, k)
-    if isinstance(w, PackedWeight):
-        out = _cim_matmul_2d(x2, w, eff, backend)
-    else:
-        out = _CimMatmulSTE.apply(x2, w, eff, backend)
+    with named_scope(site_marker(site, m, k, ledger_n)):
+        if isinstance(w, PackedWeight):
+            _check_packed(w, x, eff)
+        elif eff is None or not eff.enabled:
+            with named_scope("cim_values"):
+                return x @ w
+        backend = resolve_backend(backend or eff.backend)
+        x2 = x.reshape(m, k)
+        if isinstance(w, PackedWeight):
+            out = _cim_matmul_2d(x2, w, eff, backend, site or "")
+        else:
+            out = _CimMatmulSTE.apply(x2, w, eff, backend, site or "")
     return out.reshape(*lead, n)

@@ -1,0 +1,1 @@
+"""Runnable surfaces of the port (``python -m repro_torch.launch.<name>``)."""

@@ -4,6 +4,8 @@ chunked-prefill paths), and MLPs.
 
 Every projection goes through ``kernels.ops.cim_matmul`` with a site label,
 so the GR-CIM numerics apply per site as in ``repro.models.layers``.
+Attention's score and value einsums are digital by design and run under
+the ``dig_attn`` scope (``core.scopes``; the audit's declaration).
 Layouts stay the reference's: (B, S, H, Dh) for q/k/v and
 (B, S_ctx, KV, Dh) for the KV cache; a sliding-window ("local") layer's
 cache is a ring of ``min(window, ctx)`` slots, token ``p`` at slot
@@ -20,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cim_config import CIMConfig
+from repro_torch.core.scopes import named_scope
 from repro_torch.kernels.ops import cim_matmul
 from repro_torch.kernels.packed import PackedWeight
 
@@ -89,12 +92,15 @@ def _attend_chunked(q, kk, vv, pos_q, pos_k, cfg: ArchConfig, local: bool):
     def attend(q_c, pos_c):
         c = q_c.shape[1]
         qg = q_c.reshape(b, c, kv, groups, dh)
-        scores = torch.einsum("bskgd,btkd->bkgst", qg, kk).to(torch.float32)
+        with named_scope("dig_attn"):
+            scores = torch.einsum("bskgd,btkd->bkgst", qg, kk)
+        scores = scores.to(torch.float32)
         scores = scores / math.sqrt(dh)
         mask = _attn_mask(pos_c, pos_k, cfg.window, local)     # (B, C, Sk)
         scores = torch.where(mask[:, None, None, :, :], scores, _NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(q.dtype)
-        o = torch.einsum("bkgst,btkd->bskgd", probs, vv)
+        with named_scope("dig_attn"):
+            o = torch.einsum("bkgst,btkd->bskgd", probs, vv)
         return o.reshape(b, c, h, dh)
 
     ck = cfg.attn_chunk or sq
@@ -189,7 +195,8 @@ def _decode_attention(q, k, v, x, cache, cache_index, active,
     kk[lane, write_at] = k[:, 0].to(kk.dtype)
     vv[lane, write_at] = v[:, 0].to(vv.dtype)
     qg = q.reshape(b, 1, kv, h // kv, dh)
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, kk.to(x.dtype))
+    with named_scope("dig_attn"):
+        scores = torch.einsum("bskgd,btkd->bkgst", qg, kk.to(x.dtype))
     scores = scores.to(torch.float32) / math.sqrt(dh)
     if local:
         k_pos = cache_index[:, None] - torch.remainder(
@@ -200,7 +207,8 @@ def _decode_attention(q, k, v, x, cache, cache_index, active,
         valid = slot <= cache_index[:, None]
     scores = torch.where(valid[:, None, None, None, :], scores, _NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(x.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", probs, vv.to(x.dtype))
+    with named_scope("dig_attn"):
+        out = torch.einsum("bkgst,btkd->bskgd", probs, vv.to(x.dtype))
     if active is not None:
         keep = active[:, None, None]
         kk[lane, write_at] = torch.where(keep, kk[lane, write_at], old_k)

@@ -27,6 +27,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import costs
+from repro_torch.core.scopes import named_scope
+from repro_torch.kernels.ops import site_marker
 from repro_torch.models import layers as L
 
 __all__ = ["init_moe", "moe", "capacity", "route", "dispatch", "combine"]
@@ -137,13 +139,23 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig,
     for _ in range(2 if cfg.gated_mlp else 1):
         costs.record_matmul("moe_expert", t * k, d, f, eff)
     costs.record_matmul("moe_expert", t * k, f, d, eff)
+    # audit markers at the recorded (logical) contracts, as the reference's
+    m_in = site_marker("moe_expert", t * k, d, f)
+    m_out = site_marker("moe_expert", t * k, f, d)
     ex = p["experts"]
-    h = torch.bmm(buf, ex["wi"].to(x.dtype))
+    wi = ex["wi"].to(x.dtype)
+    with named_scope(m_in), named_scope("cim_values"):
+        h = torch.bmm(buf, wi)
     if cfg.gated_mlp:
-        h = L.silu(torch.bmm(buf, ex["wg"].to(x.dtype))) * h
+        wg = ex["wg"].to(x.dtype)
+        with named_scope(m_in), named_scope("cim_values"):
+            hg = torch.bmm(buf, wg)
+        h = L.silu(hg) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    out_buf = torch.bmm(h, ex["wo"].to(x.dtype))
+    wo = ex["wo"].to(x.dtype)
+    with named_scope(m_out), named_scope("cim_values"):
+        out_buf = torch.bmm(h, wo)
     out = combine(out_buf, slot, keep, gate_vals, k).reshape(b, s, d)
     if cfg.moe_dense_residual:
         out = out + L.mlp(p["dense_mlp"], x, cfg)

@@ -12,7 +12,9 @@ token-by-token state trajectory. The four projections are CIM sites
 ("ssm"). The train path (``ssm_train``, no cache) is the chunked SSD
 algorithm (arXiv:2405.21060 §6): within a chunk of ``ssm_chunk`` steps the
 dual quadratic (attention-like) form, across chunks a scan over the chunk
-states. Its f32 sums run in another order than the recurrence's.
+states. Its f32 sums run in another order than the recurrence's. The
+SSD contractions are digital by design and run under the ``dig_ssm_ssd``
+scope (``core.scopes``; the audit's declaration).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from typing import Optional, Tuple, Union
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.scopes import named_scope
 from repro_torch.models.layers import dense, rmsnorm, silu
 from repro_torch.models.rglru import causal_conv, causal_conv_step, softplus
 
@@ -75,12 +78,15 @@ def ssm_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     ii = torch.arange(ck, device=u.device)
     causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
     decay = torch.exp(torch.where(causal, diff, float("-inf")))
-    cb = torch.einsum("bgin,bgjn->bgij", cc_, bc_)
+    with named_scope("dig_ssm_ssd"):
+        cb = torch.einsum("bgin,bgjn->bgij", cc_, bc_)
     att = cb[..., None] * decay * dtc[:, :, None, :, :]          # (B,NC,i,j,NH)
-    y_intra = torch.einsum("bgijh,bgjhp->bgihp", att, xc)
+    with named_scope("dig_ssm_ssd"):
+        y_intra = torch.einsum("bgijh,bgjhp->bgihp", att, xc)
     # chunk states, carried across chunks by a scan
     tail = torch.exp(cum[:, :, -1:, :] - cum) * dtc              # (B,NC,CK,NH)
-    chunk_state = torch.einsum("bgjh,bgjn,bgjhp->bghnp", tail, bc_, xc)
+    with named_scope("dig_ssm_ssd"):
+        chunk_state = torch.einsum("bgjh,bgjn,bgjhp->bghnp", tail, bc_, xc)
     chunk_decay = torch.exp(cum[:, :, -1, :])                    # (B,NC,NH)
     h = torch.zeros((b, nh, n, hd), dtype=torch.float32, device=u.device)
     before = []
@@ -88,8 +94,10 @@ def ssm_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         before.append(h)                     # the state before chunk g
         h = chunk_decay[:, g, :, None, None] * h + chunk_state[:, g]
     h_before = torch.stack(before, dim=1)                        # (B,NC,NH,N,P)
-    y_inter = torch.einsum("bgin,bgih,bghnp->bgihp", cc_, torch.exp(cum),
-                           h_before)
+    decay_in = torch.exp(cum)
+    with named_scope("dig_ssm_ssd"):
+        y_inter = torch.einsum("bgin,bgih,bghnp->bgihp", cc_, decay_in,
+                               h_before)
     y = (y_intra + y_inter).reshape(b, s, nh, hd)
     y = y + p["D"][None, None, :, None] * xh
     return _out(p, y.reshape(b, s, di), z, u, cfg)
@@ -108,7 +116,8 @@ def _recurrence_step(p, cfg: ArchConfig, kernel, a_rate, h, win, x_t, b_t,
     a = torch.exp(-dt_t * a_rate)                                # (B, NH)
     dbx = (dt_t[:, :, None, None] * b_t[:, None, :, None]) * xh[:, :, None, :]
     h_new = a[..., None, None] * h + dbx
-    y = torch.einsum("bn,bhnp->bhp", c_t, h_new)
+    with named_scope("dig_ssm_ssd"):
+        y = torch.einsum("bn,bhnp->bhp", c_t, h_new)
     y = y + p["D"][None, :, None] * xh
     return h_new, win_new, y
 

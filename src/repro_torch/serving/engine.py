@@ -84,6 +84,15 @@ gets its own params from the raw weights, prepared once and kept);
 ids; ``verify_chunk_sampled`` runs the rejection rule on the device,
 drawing from ``serving.sampling`` keys, with one packed fetch;
 ``repair_chunk`` re-feeds accepted prefixes and fetches nothing.
+
+Dispatch seam: every model dispatch goes through ``_dispatch(key, fn,
+*args)``, named as the reference's executables are keyed
+(``decode[sample=…]``: a decode step with its token selection, also the
+"self" drafter's and a token-mode prefill's; ``draft[sample=False]``
+another draft arch's; ``prefill[bucket=…]``: a prefill chunk, a greedy
+verify and a repair; ``verify[bucket=…]``: a sampled verify), and every
+device→host transfer through ``_fetch``. Both are plain calls here;
+``analysis.invariants.InstrumentedEngine`` counts at them.
 """
 from __future__ import annotations
 
@@ -236,6 +245,11 @@ class Engine:
         independent oracle)."""
         return params if arch.cim.backend == "ref" else pack_params(params,
                                                                      arch)
+
+    def _dispatch(self, key: str, fn: Callable, *args):
+        """One model dispatch, ``fn(*args)``, named ``key`` (the seam the
+        invariant harness counts at)."""
+        return fn(*args)
 
     def _snapshot(self, host_state: np.ndarray) -> torch.Tensor:
         """A device copy of mutable per-slot host state. ``torch.tensor``
@@ -478,22 +492,38 @@ class Engine:
         toks[slot, :len(chunk)] = chunk
         lens = np.zeros(self.cfg.batch_slots, np.int64)
         lens[slot] = len(chunk)
-        logits, _, self.cache = prefill_step(
-            self.params, self._snapshot(toks), self.arch, self.cache,
+        logits, _, self.cache = self._dispatch(
+            f"prefill[bucket={bucket}]", prefill_step, self.params,
+            self._snapshot(toks), self.arch, self.cache,
             self._snapshot(self.lengths), self._snapshot(lens))
         self.lengths[slot] += len(chunk)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_tokens"] += len(chunk)
         return logits
 
-    def _decode(self, toks: np.ndarray, mask: np.ndarray) -> torch.Tensor:
-        """One decode dispatch over the whole batch; lanes outside ``mask``
-        keep their caches. Returns the logits (B, V) on the device."""
+    def _decode(self, toks: np.ndarray, mask: np.ndarray,
+                arch: Optional[ArchConfig] = None,
+                index: Optional[np.ndarray] = None) -> torch.Tensor:
+        """One decode forward over the whole batch, of ``arch`` (None: the
+        served one) at cache offsets ``index`` (None: the lengths); lanes
+        outside ``mask`` keep their caches. Returns the logits (B, V) on
+        the device."""
+        params = self.params if arch is None else self._draft_params_of(arch)
         logits, self.cache = decode_step(
-            self.params, self._snapshot(toks.astype(np.int64)), self.arch,
-            self.cache, self._snapshot(self.lengths),
+            params, self._snapshot(toks.astype(np.int64)), arch or self.arch,
+            self.cache,
+            self._snapshot(self.lengths if index is None else index),
             active=self._snapshot(mask))
         return logits
+
+    def _decode_choose(self, toks: np.ndarray, mask: np.ndarray,
+                       sample: bool, key: Optional[int],
+                       arch: Optional[ArchConfig] = None,
+                       index: Optional[np.ndarray] = None) -> torch.Tensor:
+        """A decode dispatch: the forward and the token selection, (B,)
+        int32 ids on the device."""
+        return self._choose(self._decode(toks, mask, arch, index), sample,
+                            key, mask)
 
     def _advance_slot(self, slot: int, token: int, sample: bool = False,
                       key: Optional[int] = None) -> int:
@@ -505,7 +535,8 @@ class Engine:
         toks[slot, 0] = token
         mask = np.zeros(self.cfg.batch_slots, bool)
         mask[slot] = True
-        ids = self._choose(self._decode(toks, mask), sample, key, mask)
+        ids = self._dispatch(f"decode[sample={sample}]", self._decode_choose,
+                             toks, mask, sample, key)
         self.lengths[slot] += 1
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_tokens"] += 1
@@ -526,9 +557,9 @@ class Engine:
         if not self.active.any():
             return StepResult({}, pending, self._pj_per_token, outputs)
         sample = bool((self._effective_temps(key)[self.active] > 0).any())
-        ids = self._fetch(self._choose(
-            self._decode(self._last_host[:, None], self.active), sample, key,
-            self.active))
+        ids = self._fetch(self._dispatch(
+            f"decode[sample={sample}]", self._decode_choose,
+            self._last_host[:, None], self.active, sample, key))
         act = np.where(self.active)[0]
         out = {}
         for s in act:
@@ -611,12 +642,15 @@ class Engine:
         caches. Returns the drafted ids (one fetch)."""
         toks = np.zeros((self.cfg.batch_slots, 1), np.int64)
         toks[mask, 0] = cur[mask]
-        logits, self.cache = decode_step(
-            self._draft_params_of(draft_arch), self._snapshot(toks),
-            draft_arch, self.cache, self._snapshot(offsets.astype(np.int64)),
-            active=self._snapshot(mask))
+        # the "self" drafter is the greedy decode dispatch itself, on the
+        # decode step's index type; another draft arch keeps int64 offsets
+        own = draft_arch is self.arch
+        key = "decode[sample=False]" if own else "draft[sample=False]"
+        index = offsets.astype(self.lengths.dtype if own else np.int64)
+        ids = self._dispatch(key, self._decode_choose, toks, mask, False,
+                             None, draft_arch, index)
         self.stats["draft_dispatches"] += 1
-        return self._fetch(torch.argmax(logits, dim=-1).to(torch.int32))
+        return self._fetch(ids)
 
     def _chunk_tokens(self, chunk: np.ndarray) -> torch.Tensor:
         """``chunk`` (B, k) right-padded with zeros to its bucket."""
@@ -631,10 +665,11 @@ class Engine:
         d_1 .. d_{k-1}]``, ``lens`` valid entries, 0 freezes the lane)
         through the bucketed prefill: ``prefill_step``'s per-position argmax
         ids, (B, k), one fetch. Lengths are not committed here."""
-        _, ids, self.cache = prefill_step(
-            self.params, self._chunk_tokens(chunk), self.arch, self.cache,
-            self._snapshot(self.lengths), self._snapshot(lens.astype(
-                np.int64)))
+        toks = self._chunk_tokens(chunk)
+        _, ids, self.cache = self._dispatch(
+            f"prefill[bucket={toks.shape[1]}]", prefill_step, self.params,
+            toks, self.arch, self.cache, self._snapshot(self.lengths),
+            self._snapshot(lens.astype(np.int64)))
         self.stats["verify_dispatches"] += 1
         return self._fetch(ids)[:, :chunk.shape[1]]
 
@@ -651,7 +686,8 @@ class Engine:
                                   self._seed, self._ctr)
         halves = np.array([sampling.split(int(lk), 2) for lk in keys],
                           dtype=np.uint64) & np.uint64(0xFFFFFFFF)
-        packed = self._verify_sampled(
+        packed = self._dispatch(
+            f"verify[bucket={toks.shape[1]}]", self._verify_sampled,
             toks, self._snapshot(lens.astype(np.int64)),
             self._snapshot(halves[:, 0].astype(np.int64)),
             self._snapshot(halves[:, 1].astype(np.int64)),
@@ -716,9 +752,12 @@ class Engine:
         re-feed each one's accepted prefix (``lens[i]`` leading tokens of
         ``chunk``, 0: frozen) at its pre-verify offset ``index``. No fetch:
         acceptance already knows every token."""
-        _, _, self.cache = prefill_step(
-            self.params, self._chunk_tokens(chunk), self.arch, self.cache,
-            self._snapshot(index.astype(np.int64)),
+        toks = self._chunk_tokens(chunk)
+        # the prefill dispatch of admission, on its index type
+        _, _, self.cache = self._dispatch(
+            f"prefill[bucket={toks.shape[1]}]", prefill_step, self.params,
+            toks, self.arch, self.cache,
+            self._snapshot(index.astype(self.lengths.dtype)),
             self._snapshot(lens.astype(np.int64)))
         self.stats["repair_dispatches"] += 1
 

@@ -10,9 +10,12 @@ trace, the engine's pJ/token, ``grmac_matmul`` refusing ``meta``), the
 sampler on the card against the CPU, prefix-cache snapshots on the card,
 the scheduler's streams through the kernel against the plain version's,
 speculative decode's snapshots (copies) and its streams through the
-kernel against the plain version's, and one train step's loss and
+kernel against the plain version's, one train step's loss and
 gradients through the kernel (its per-call route, under remat) against
-the plain version's.
+the plain version's, and the kernel's sanitizing instantiation (both
+designs, every granularity, NaN and ragged shapes) counting exactly what
+the plain version's checks count, its output bitwise the plain
+instantiation's.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. This file imports no JAX, so it also runs on the
@@ -804,3 +807,131 @@ def test_train_step_through_the_kernel_equals_the_plain_version(name):
     assert lk == lr
     for a, b in zip(gk, gr):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+# ---------------------------------------------------------------- sanitizer
+def _pending_stats(start):
+    """The pending sanitizer records since index ``start`` folded into one
+    (nonfinite, overflow, worst |v|, gain count, worst span) tuple: a
+    kernel call leaves one buffer, a plain call one values and (row, unit)
+    one span record."""
+    from repro_torch.analysis import sanitize
+
+    out = [0, 0, 0.0, 0, 0]
+    for _, kinds, stats, from_kernel in sanitize._PENDING[start:]:
+        row = stats.cpu().numpy()
+        if from_kernel:
+            worst = float(np.array([row[2]], np.int64).astype(
+                np.uint32).view(np.float32)[0])
+            return (int(row[0]), int(row[1]), worst, int(row[3]),
+                    int(row[4]) if "gain_range" in kinds else 0)
+        if "nonfinite" in kinds:
+            out[:3] = int(row[0]), int(row[1]), float(row[2])
+        if "gain_range" in kinds:
+            out[3:] = int(row[3]), int(row[4])
+    return tuple(out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("granularity", GRANULARITIES)
+@pytest.mark.parametrize("design", DESIGNS)
+@pytest.mark.parametrize("case", ["main", "e4m3", "nan", "ragged"])
+def test_sanitizing_kernel_counts_equal_plain_version(design, granularity,
+                                                      case, monkeypatch):
+    """The sanitizing instantiation's five numbers (nonfinite, overflow,
+    worst |v|, gain count, worst span) equal the plain version's on the
+    same inputs, worst |v| bitwise at the main formats, for both designs
+    and every granularity: the main formats; FP8_E4M3 activations (gain-range
+    violations; the tensor-core design takes only formats exact in bf16,
+    so FP8_E4M3 x FP4_E2M1 there); a NaN (its block's v nonfinite in
+    every column);
+    ragged M, K and N (padding rows and clamped columns counted once).
+    The output stays bitwise the unsanitized kernel's."""
+    _need_card()
+    from repro_torch.analysis import sanitize
+    from repro_torch.core.formats import FP4_E2M1, FP6_E3M2, FP8_E4M3
+    from repro_torch.kernels.dispatch import grmac_matmul
+    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m, k, n = (37, 200, 70) if case == "ragged" else (40, 256, 128)
+    x, w = _operands(gen, m, k, n, FP4_E2M1)
+    if case == "nan":
+        x[5, 40] = float("nan")
+    if case == "ragged":
+        x[:, :17] *= 1e-3
+    kw = dict(fmt_x=FP8_E4M3 if case == "e4m3" else FP6_E3M2,
+              fmt_w=FP4_E2M1, n_r=32, enob=8.0, granularity=granularity)
+    monkeypatch.delenv(sanitize.ENV_VAR, raising=False)
+    base = grmac_matmul(x, w, design=design, **kw)
+    monkeypatch.setenv(sanitize.ENV_VAR, "1")
+    sanitize.clear()
+    before = dict(grmac_matmul_cuda.launches_by_instantiation)
+    got = grmac_matmul(x, w, design=design, tag="k", **kw)
+    assert grmac_matmul_cuda.launches_by_instantiation["sanitizing"] == \
+        before["sanitizing"] + 1
+    kern = _pending_stats(0)
+    i = len(sanitize._PENDING)
+    want = grmac_matmul(x, w, backend="ref", tag="k", **kw)
+    plain = _pending_stats(i)
+    assert torch.equal(got.isnan(), base.isnan())
+    assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(base))
+    if case == "e4m3":
+        # FP8_E4M3 products' block sums round in each design's order:
+        # worst |v| within 1e-5, the counts and spans exact
+        assert kern[:2] + kern[3:] == plain[:2] + plain[3:]
+        assert abs(kern[2] - plain[2]) <= 1e-5 * plain[2]
+    else:
+        assert kern == plain
+    if case != "e4m3":                   # bitwise formats, NaNs where torch's
+        assert torch.equal(got.isnan(), want.isnan())
+        assert torch.equal(torch.nan_to_num(got), torch.nan_to_num(want))
+    if case == "nan":
+        assert kern[0] == n                    # row 5's block 1, each column
+    if case == "e4m3" and granularity != "conv":
+        assert kern[3] > 0 and kern[4] > 6
+    sanitize.clear()
+
+
+@pytest.mark.gpu
+def test_sanitizer_through_cim_matmul_on_the_card(monkeypatch):
+    """``cim_matmul``'s kernel route (packed weights, the pre-scale in the
+    kernel) and its plain route on the card give equal records, tagged
+    with the site; a NaN makes sx NaN and every v of the call nonfinite;
+    unset, the plain instantiation runs and no record is left."""
+    _need_card()
+    from repro_torch.analysis import sanitize
+    from repro_torch.core.cim_config import CIMConfig
+    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
+    from repro_torch.kernels.ops import cim_matmul
+    from repro_torch.kernels.packed import pack_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cfg = CIMConfig(mode="grmac")
+    for m in (8, 96):                         # decode and tensor-core design
+        x = torch.randn((m, 768), generator=gen, device="cuda") * 3
+        w = torch.randn((768, 320), generator=gen, device="cuda") * 0.02
+        pw = pack_weight(w, cfg.fmt_w, cfg.n_r)
+        monkeypatch.delenv(sanitize.ENV_VAR, raising=False)
+        sanitize.clear()
+        before = dict(grmac_matmul_cuda.launches_by_instantiation)
+        clean = cim_matmul(x, pw, cfg, site="mlp")
+        assert grmac_matmul_cuda.launches_by_instantiation == {
+            **before, "plain": before["plain"] + 1}
+        assert sanitize._PENDING == []
+        monkeypatch.setenv(sanitize.ENV_VAR, "1")
+        for xin in (x, x.clone().index_fill_(0, torch.tensor(
+                [m // 2], device="cuda"), float("nan"))):
+            sanitize.clear()
+            out_k = cim_matmul(xin, pw, cfg, site="mlp")
+            kern = [dict(r) for r in sanitize.VIOLATIONS]
+            sanitize.clear()
+            cim_matmul(xin, w, cfg, site="mlp", backend="ref")
+            assert kern == [dict(r) for r in sanitize.VIOLATIONS]
+            if xin is x:
+                assert torch.equal(out_k, clean)
+            else:
+                assert kern[0] == {"kind": "nonfinite", "tag": "mlp",
+                                   "count": m * 24 * 320,
+                                   "worst": float("inf")}
+    sanitize.clear()
