@@ -142,6 +142,24 @@ seconds:
             dispatch key. The ``timing`` phase also times one paper-cim
             forward's launches through the plain and the sanitizing
             instantiation in turns (``timing_sanitizing``, M = 8 and 512);
+5f. train_drill  after the analysis: ``python -m repro_torch.launch.train
+            --arch paper-cim-120m --steps 12 --drill`` driven through its
+            ``main``: the supervised fault drill at full width and depth
+            (batch 8 x 128, ``make_fault_plan(0, 12)``: a device loss, a
+            kill and a straggler; local tier every 2 steps, durable every
+            6, in the temporary directory), its state DTensors on a 1 x 1
+            NCCL mesh after every restore: the counters equal to
+            ``DRILL_COUNTERS`` (the JAX package's for that plan), 169
+            kernel launches a step run (85 + 84 recomputed by remat), step
+            0's loss equal to the plain version's on the same weights, and
+            all 12 losses equal to an uninterrupted run's (a recomputed
+            step's loss is held to its first run inside the drill); the
+            GoodPut buckets, the checkpoint seconds, the step ms and pJ per
+            useful token;
+    launch_serve  ``python -m repro_torch.launch.serve --arch paper-cim-120m
+            --slots 8 --ctx 512`` through its ``main``, as the two-prompt
+            demo and with ``--traffic 16``: 85 kernel launches a dispatch,
+            pJ/token within ``MC_TOL`` of ``serve_energy``'s;
 6. forward_musicgen  musicgen-medium (embedding inputs, GELU MLP) at full
             width and depth: seeded (8, S, 1536) embeddings through
             ``prefill_step`` and decode steps, through the kernel and
@@ -157,13 +175,16 @@ Then the ``kernels`` summary line, the card's name and power limit as
 last line; so does a machine without a CUDA card, or a directory without
 the port's sources.
 """
+import contextlib
 import gc
+import io
 import json
 import math
 import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -216,6 +237,19 @@ STEP_LAUNCHES = {"serve": 1011, "serve_gemma3": 3008, "serve_mamba2": 3383,
 # any difference is the card's summation order; bound per tensor, relative
 # to its largest entry.
 GRAD_RTOL = 1e-5
+# The supervised drill of train_drill: make_fault_plan(0, 12) under the
+# default DrillConfig (4 hosts, 8 chips, local tier every 2 steps, durable
+# every 6). Its counters are pure functions of (plan, config); these are
+# the JAX package's for that plan (tests/test_torch_supervisor.py holds
+# them to it and to the port's drill on the CPU).
+DRILL_PLAN = [(3, "device_loss"), (5, "kill"), (10, "straggler")]
+DRILL_COUNTERS = {"final_step": 12, "attempts": 3, "faults_injected": 3,
+                  "faults_detected": 3, "fault_kill": 1,
+                  "fault_device_loss": 1, "fault_straggler": 1,
+                  "steps_recomputed": 4, "ckpt_local": 7, "ckpt_durable": 4,
+                  "restore_local": 1, "restore_durable": 1,
+                  "remesh_events": 1, "dp_width_initial": 8,
+                  "dp_width_final": 6}
 
 # H100 SXM data sheet (dense): HBM rate, bf16 tensor-core and f32 peaks.
 HBM_BYTES_S = 3.35e12
@@ -1808,6 +1842,246 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    # ------------------------------------------------- drill and launchers
+    from repro_torch.launch import serve as launch_serve_mod
+    from repro_torch.launch import train as launch_train_mod
+    from repro_torch.launch.mesh import local_mesh
+    from repro_torch.parallel.sharding import use_mesh
+    from repro_torch.training import supervisor as supervisor_mod
+    from repro_torch.training.checkpoint import snapshot_tree, write_snapshot
+    from repro_torch.parallel.sharding import param_specs
+    from repro_torch.training.fault import make_fault_plan, reshard_tree
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    def train_drill(arch):
+        """``python -m repro_torch.launch.train --arch paper-cim-120m
+        --steps 12 --drill``: the supervised drill at full width and depth
+        (batch 8 x 128, 3 faults, drill seed 0, local tier every 2 steps,
+        durable every 6), its state DTensors on a 1 x 1 NCCL mesh after
+        every restore. The counters must equal ``DRILL_COUNTERS``, every
+        step launch the kernel 169 times (85 + 84 recomputed by remat),
+        step 0's loss equal the plain version's on the same weights, and
+        every loss equal an uninterrupted run's (a recomputed step's is
+        also held to its first run inside the drill)."""
+        plan = make_fault_plan(0, 12, n_faults=3)
+        if [(e.step, e.kind) for e in plan.events] != DRILL_PLAN:
+            fail(f"train_drill: the plan is {plan.events}, not {DRILL_PLAN}")
+        data = SyntheticLM(DataConfig(global_batch=8, seq_len=128,
+                                      vocab_size=arch.vocab_size),
+                           device=dev)
+        # the plain version's step 0 on the weights the drill starts from
+        params = init_params(arch, 0, device=dev)
+        with torch.no_grad():
+            _, m = train_loss(params, data.batch_at(0), arch.replace(
+                cim=arch.cim.with_backend("ref")))
+        plain_loss0 = float(m["loss"])
+        del params, m
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # every restore's placement, seen at the supervisor's reshard_tree
+        placed = []
+
+        def watched_reshard(tree, mesh, specs):
+            out = reshard_tree(tree, mesh, specs)
+            leaves = tree_leaves(out)
+            placed.append({
+                "leaves": len(leaves),
+                "dtensor_leaves": sum(isinstance(t, DTensor) for t in leaves),
+                "mesh": [list(mesh.shape), list(mesh.mesh_dim_names),
+                         mesh.device_type],
+                "backend": dist.get_backend(), "world": dist.get_world_size(),
+                "on_card": all(t.to_local().is_cuda for t in leaves)})
+            return out
+
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        supervisor_mod.reshard_tree = watched_reshard
+        printed = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(printed):
+                rep = launch_train_mod.main([
+                    "--arch", arch.name, "--steps", "12", "--batch", "8",
+                    "--seq", "128", "--drill", "--drill-faults", "3",
+                    "--drill-seed", "0"])
+        finally:
+            supervisor_mod.reshard_tree = reshard_tree
+        torch.cuda.synchronize()
+        drill_s = time.perf_counter() - t0
+        # the launcher's printed report (indented JSON), on one line here
+        emit({"phase": "train_drill_report", "printed": json.loads(
+            printed.getvalue()), "card": card})
+        launches = grmac_matmul_cuda.launches
+        by_design = dict(grmac_matmul_cuda.launches_by_design)
+        peak = torch.cuda.max_memory_allocated()
+        launches_by_path["train_drill"] = launches
+        for d in DESIGNS:
+            by_design_total[d] += by_design[d]
+        steps_run = rep["final_step"] + rep["steps_recomputed"]
+        want = steps_run * train_launches(arch)
+
+        # an uninterrupted run of the same 12 steps (no checkpoints), on
+        # plain tensors, under the drill's deterministic algorithms
+        tcfg = TrainConfig(steps=12, opt=OptimizerConfig(
+            lr=3e-4, warmup_steps=5, total_steps=12))
+        step_fn = make_train_step(arch, tcfg)
+        p = init_params(arch, 0, device=dev)
+        o = init_opt_state(p, tcfg.opt)
+        base, base_ms = [], []
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with local_mesh(dev) as mesh, use_mesh(mesh):
+                for step in range(12):
+                    t1 = time.perf_counter()
+                    p, o, m = step_fn(p, o, data.batch_at(step))
+                    base.append(float(m["loss"]))
+                    base_ms.append(1e3 * (time.perf_counter() - t1))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        # the same step on the state placed as DTensors (as after a
+        # restore), with no checkpoint writer beside it
+        state = {"params": p, "opt": o}
+        dtensor_ms = []
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with local_mesh(dev) as mesh, use_mesh(mesh):
+                placed_state = reshard_tree(state, mesh, {
+                    k: param_specs(v, mesh) for k, v in state.items()})
+                dp, do = placed_state["params"], placed_state["opt"]
+                for step in range(12, 15):
+                    t1 = time.perf_counter()
+                    dp, do, m = step_fn(dp, do, data.batch_at(step))
+                    float(m["loss"])
+                    dtensor_ms.append(1e3 * (time.perf_counter() - t1))
+                del placed_state, dp, do
+        finally:
+            torch.use_deterministic_algorithms(False)
+        # the checkpoint's parts: the training thread's host snapshot of
+        # the state, and one tier's write (files, sha256, publish) that the
+        # background thread does and a drain waits for
+        state_bytes = sum(t.numel() * t.element_size()
+                          for t in tree_leaves(state))
+        t1 = time.perf_counter()
+        snap = snapshot_tree(state)
+        snapshot_s = time.perf_counter() - t1
+        with tempfile.TemporaryDirectory() as wd:
+            t1 = time.perf_counter()
+            write_snapshot(wd, 1, snap)
+            write_s = time.perf_counter() - t1
+        del p, o, m, step_fn, state, snap
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        counters = {k: rep[k] for k in DRILL_COUNTERS}
+        g = rep["goodput"]
+        first_steps = rep["final_step"]
+        energy = rep["energy"]
+        as_dtensors = [r["dtensor_leaves"] == r["leaves"] and r["on_card"]
+                       and r["backend"] == "nccl" and r["world"] == 1
+                       and r["mesh"][0] == [1, 1] for r in placed]
+        ok = (counters == DRILL_COUNTERS and launches == want
+              and len(placed) == rep["attempts"] - 1 and all(as_dtensors)
+              and rep["losses"][0] == plain_loss0 and rep["losses"] == base
+              and all(map(math.isfinite, rep["losses"]))
+              and abs(sum(g["buckets_s"].values()) - g["wall_s"])
+              <= 1e-6 * g["wall_s"])
+        emit({"phase": "train_drill", "arch": arch.name,
+              "n_layers": arch.n_layers, "batch": [8, 128],
+              "mesh": "1 x 1 (data, model), world-1 NCCL group",
+              "plan": DRILL_PLAN, "counters": counters,
+              "counters_equal": counters == DRILL_COUNTERS,
+              "losses": rep["losses"], "uninterrupted_losses": base,
+              "losses_equal_uninterrupted": rep["losses"] == base,
+              "step0_loss": rep["losses"][0],
+              "plain_step0_loss": plain_loss0,
+              "step0_equal_plain": rep["losses"][0] == plain_loss0,
+              "kernel_launches": launches, "expected_launches": want,
+              "kernel_launches_per_step": launches / steps_run,
+              "kernel_launches_by_design": by_design,
+              "goodput_pct": g["goodput_pct"], "wall_s": g["wall_s"],
+              "buckets_s": g["buckets_s"],
+              "checkpoint_stall_s": g["buckets_s"]["checkpoint_stall"],
+              "restores": placed, "restored_as_dtensors": all(as_dtensors),
+              "productive_step_ms": 1e3 * g["buckets_s"]["productive"]
+              / first_steps,
+              "uninterrupted_step_ms": base_ms,
+              "uninterrupted_step_ms_median": float(np.median(base_ms)),
+              "dtensor_step_ms": dtensor_ms,
+              "state_bytes": state_bytes, "snapshot_s": snapshot_s,
+              "tier_write_s": write_s,
+              "recompute_step_ms": 1e3 * g["buckets_s"]["recompute"]
+              / max(rep["steps_recomputed"], 1),
+              "pj_per_token": energy["pj_per_token"],
+              "pj_per_useful_token": energy["pj_per_useful_token"],
+              "badput_energy_overhead": energy["badput_energy_overhead"],
+              "drill_with_pricing_s": drill_s, "peak_mem_bytes": peak,
+              "ok": ok, "card": card})
+        if not ok:
+            fail(f"train_drill: counters {counters} (want {DRILL_COUNTERS}),"
+                 f" restores {placed}, {launches} kernel launches (want "
+                 f"{want}), step 0 "
+                 f"{rep['losses'][0]} vs plain {plain_loss0}, losses "
+                 f"{rep['losses']} vs uninterrupted {base}")
+
+    def launch_serve(serve_pj):
+        """``python -m repro_torch.launch.serve --arch paper-cim-120m
+        --slots 8 --ctx 512``, as the two-prompt demo and with
+        ``--traffic 16``: a kernel launch per projection of a forward (85)
+        a dispatch, pJ/token within ``MC_TOL`` of ``serve_energy``'s."""
+        fwd = per_forward(paper)
+        argv = ["--arch", "paper-cim-120m", "--slots", "8", "--ctx", "512"]
+        rows = {}
+        for mode, extra in (("demo", []), ("traffic", ["--traffic", "16"])):
+            reset_counts()
+            t0 = time.perf_counter()
+            res = launch_serve_mod.main(argv + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = grmac_matmul_cuda.launches
+            for d in DESIGNS:
+                by_design_total[d] += grmac_matmul_cuda.launches_by_design[d]
+            launches_by_path[f"launch_serve_{mode}"] = launches
+            st = res["engine_stats"]
+            dispatches = sum(st.get(k, 0) for k in (
+                "prefill_dispatches", "decode_steps", "draft_dispatches",
+                "verify_dispatches", "repair_dispatches"))
+            pj_got = (res["engine_pj_per_token"] if mode == "demo"
+                      else res["metrics"]["pj_per_token"])
+            row = {"phase": "launch_serve", "mode": mode,
+                   "kernel_launches": launches, "dispatches": dispatches,
+                   "launches_per_dispatch": launches / max(dispatches, 1),
+                   "pj_per_token": pj_got, "serve_energy_pj_per_token":
+                   serve_pj, "pj_tolerance": MC_TOL["pj_per_token_2048"],
+                   "wall_s": wall, "card": card}
+            if mode == "traffic":
+                m = res["metrics"]
+                row.update({k: m[k] for k in (
+                    "completed", "rejected", "decode_steps",
+                    "prefill_dispatches", "ttft_p50_ms", "ttft_p99_ms",
+                    "tpot_p50_ms", "tpot_p99_ms", "goodput_tok_s")})
+            else:
+                toks = [list(r.values()) for r in res["steps"]]
+                row["tokens_in_vocab"] = all(
+                    0 <= int(t) < paper.vocab_size for ts in toks for t in ts)
+            row["ok"] = (launches == fwd * dispatches and dispatches > 0
+                         and abs(pj_got - serve_pj)
+                         <= MC_TOL["pj_per_token_2048"]
+                         and row.get("tokens_in_vocab", True)
+                         and (mode == "demo" or row["completed"] == 16))
+            emit(row)
+            rows[mode] = row
+            if not row["ok"]:
+                fail(f"launch_serve ({mode}): {launches} kernel launches "
+                     f"for {dispatches} dispatches ({fwd} each), pJ/token "
+                     f"{pj_got} against serve_energy's {serve_pj}")
+            del res
+            gc.collect()
+            torch.cuda.empty_cache()
+        return rows
+
     # ----------------------------------------------------------- analysis
     from repro_torch.analysis import invariants as inv
 
@@ -2069,6 +2343,12 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     seconds("analysis")
+
+    # -------------------------------------------- train_drill, launch_serve
+    train_drill(get_config("paper-cim-120m"))
+    seconds("train_drill")
+    launch_serve(pj)
+    seconds("launch_serve")
 
     def with_grmac(arch):
         # the default design: row, FP6_E3M2 x FP4_E2M1, n_r 32, ENOB 8

@@ -261,8 +261,8 @@ def default_train_seq(arch) -> int:
 def trace_train(arch, batch: int = 1,
                 seq_len: Optional[int] = None) -> CostLedger:
     """Ledger of one train step's *forward* (the STE backward is digital)
-    over ``batch × seq_len`` tokens; raises ``NotImplementedError`` for
-    RG-LRU and SSM blocks, whose train forms are not ported yet."""
+    over ``batch × seq_len`` tokens, for every block kind (RG-LRU by its
+    associative scan, SSM by its chunked SSD form)."""
     return _trace(*phase_trace_spec(arch, "train", batch=batch,
                                     seq_len=seq_len))
 

@@ -7,7 +7,11 @@
    "off") runs at this call site;
 1. dynamic pre-scale: activations are normalized into [-1, 1] by their
    per-tensor absmax (one absmax over the whole flattened activation, so
-   every row of a batch shapes every other row's numbers); weights likewise;
+   every row of a batch shapes every other row's numbers); weights likewise.
+   Under the SPMD program of ``parallel.sharding`` the weight arrives
+   whole and x as this rank's rows, and the absmax of x is the max over
+   every rank (``sharding.all_reduce_max``), so each output row sees the
+   same pre-scale, weight and K order as without a mesh;
 2. mode dispatch:
      off        exact matmul (digital baseline)
      fakequant  format-grid quantization of x and w, exact accumulation
@@ -15,6 +19,12 @@
 3. straight-through gradients: the backward applies the exact-matmul
    gradient to the *raw* saved operands, so the op is trainable and its
    backward is digital.
+
+``x`` and ``w`` may be DTensors: the weight is gathered to its full K x
+N, x redistributed so that K is whole on every rank (its rows stay where
+they are), and the op runs on the local tensors with the absmax of x
+taken over every rank; the output is a DTensor placed as x's rows
+(``_on_dtensors``). The kernel is never handed a DTensor.
 
 ``w`` may also be a ``PackedWeight`` (``kernels/packed.py``): the weight's
 pre-scale and quantization done once, for serving. Only ``grmac`` sites
@@ -44,6 +54,7 @@ from repro_torch.core import costs
 from repro_torch.core.cim_config import CIMConfig
 from repro_torch.core.formats import IntFormat, quantize, quantize_any
 from repro_torch.core.scopes import named_scope
+from repro_torch.parallel import sharding
 
 from .dispatch import grmac_matmul, pad_to_multiple, resolve_backend
 from .grmac_matmul import grmac_matmul_cuda
@@ -103,11 +114,13 @@ def _cim_matmul_2d(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
                 # max |x| in one reduction (the kernel clamps it to sx)
                 out = grmac_matmul_cuda(
                     x32.contiguous(), pw,
-                    torch.linalg.vector_norm(x32, float("inf")),
+                    sharding.all_reduce_max(
+                        torch.linalg.vector_norm(x32, float("inf"))),
                     fmt_x=cfg.fmt_x, enob=cfg.resolved_enob(),
                     granularity=cfg.granularity, tag=tag)
                 return out.to(dtype)
-            sx = torch.clamp(torch.amax(torch.abs(x32)), min=_EPS)
+            sx = torch.clamp(
+                sharding.all_reduce_max(torch.amax(torch.abs(x32))), min=_EPS)
             out = grmac_matmul(x32 / sx, unpack_weight(pw), fmt_x=cfg.fmt_x,
                                fmt_w=cfg.fmt_w, n_r=cfg.n_r,
                                enob=cfg.resolved_enob(),
@@ -115,7 +128,8 @@ def _cim_matmul_2d(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
                                tag=tag)
             return (out * (sx * pw.sw)).to(dtype)
     w32 = w.to(torch.float32)
-    sx = torch.clamp(torch.amax(torch.abs(x32)), min=_EPS)
+    sx = torch.clamp(sharding.all_reduce_max(torch.amax(torch.abs(x32))),
+                     min=_EPS)
     sw = torch.clamp(torch.amax(torch.abs(w32)), min=_EPS)
     xn = x32 / sx
     wn = w32 / sw
@@ -197,6 +211,9 @@ def cim_matmul(
     ``backend=`` argument > ``cfg.backend``. A ``PackedWeight`` serves
     only a site that resolves to the grmac design it was packed for.
     """
+    if sharding.is_dtensor(x) or sharding.is_dtensor(w):
+        return _on_dtensors(x, w, cfg, site=site, backend=backend,
+                            logical_n=logical_n)
     eff = cfg.for_site(site) if cfg is not None else None
     lead = x.shape[:-1]
     k = x.shape[-1]
@@ -219,3 +236,27 @@ def cim_matmul(
         else:
             out = _CimMatmulSTE.apply(x2, w, eff, backend, site or "")
     return out.reshape(*lead, n)
+
+
+def _on_dtensors(x, w, cfg, **kw):
+    """``cim_matmul`` on DTensor operands (module docstring): each rank
+    computes its rows against the whole weight, the pre-scale's absmax the
+    max over every rank. The weight's gradient is summed over the mesh
+    dimensions that split x's rows."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    if not isinstance(x, DTensor):
+        return cim_matmul(x, sharding.gather_full(w), cfg, **kw)
+    mesh = x.device_mesh
+    last = x.ndim - 1
+    pl = [Replicate() if p.is_partial() or (isinstance(p, Shard)
+                                            and p.dim % x.ndim == last)
+          else p for p in x.placements]
+    x_l = x.redistribute(mesh, pl).to_local()
+    if isinstance(w, DTensor):
+        w = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(
+            grad_placements=[Partial() if isinstance(p, Shard)
+                             else Replicate() for p in pl])
+    with sharding.use_mesh(mesh), sharding.spmd():
+        out = cim_matmul(x_l, w, cfg, **kw)
+    return DTensor.from_local(out, mesh, pl, run_check=False)

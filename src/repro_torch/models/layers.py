@@ -2,7 +2,9 @@
 attention, full and sliding-window (train, single-token decode and
 chunked-prefill paths), and MLPs.
 
-Every projection goes through ``kernels.ops.cim_matmul`` with a site label,
+The train path's attention splits query positions over "model" inside
+the SPMD program of ``parallel.sharding`` (``_train_attention``). Every
+projection goes through ``kernels.ops.cim_matmul`` with a site label,
 so the GR-CIM numerics apply per site as in ``repro.models.layers``.
 Attention's score and value einsums are digital by design and run under
 the ``dig_attn`` scope (``core.scopes``; the audit's declaration).
@@ -25,6 +27,7 @@ from repro_torch.core.cim_config import CIMConfig
 from repro_torch.core.scopes import named_scope
 from repro_torch.kernels.ops import cim_matmul
 from repro_torch.kernels.packed import PackedWeight
+from repro_torch.parallel import sharding
 
 __all__ = ["dense", "rmsnorm", "rope", "silu", "attention", "mlp"]
 
@@ -111,6 +114,26 @@ def _attend_chunked(q, kk, vv, pos_q, pos_k, cfg: ArchConfig, local: bool):
     outs = [attend(q[:, i * ck:(i + 1) * ck], pos_q[:, i * ck:(i + 1) * ck])
             for i in range(sq // ck)]
     return torch.cat(outs, dim=1)
+
+
+def _train_attention(q, k, v, positions, cfg: ArchConfig, local: bool):
+    """Full-sequence attention with explicit sequence parallelism: inside
+    the SPMD program (``parallel.sharding.spmd``) with a "model" axis whose
+    size divides S, each "model" rank attends its block of query positions
+    against all keys (queries split over "model", K/V replicated, their
+    gradients summed over "model"), and the blocks are gathered; the
+    reference's ``shard_map``. Otherwise chunked attention on one device.
+    Each query's scores and output are computed as without a mesh."""
+    s = q.shape[1]
+    nm = sharding.model_shards()
+    if nm > 1 and s % nm == 0:
+        q_l = sharding.chunk(q, 1)
+        pos_l = sharding.chunk(positions, 1)
+        out = _attend_chunked(q_l, sharding.copy_to_model(k),
+                              sharding.copy_to_model(v), pos_l, positions,
+                              cfg, local)
+        return sharding.all_gather(out, 1)
+    return _attend_chunked(q, k, v, positions, positions, cfg, local)
 
 
 def _chunk_prefill_attention(q, k, v, x, cache, cache_index, chunk_lengths,
@@ -251,7 +274,7 @@ def attention(
     k = rope(k, positions, cfg.rope_theta)
 
     if cache is None:
-        out = _attend_chunked(q, k, v, positions, positions, cfg, local)
+        out = _train_attention(q, k, v, positions, cfg, local)
     elif chunk_lengths is not None:
         out, cache = _chunk_prefill_attention(
             q, k, v, x, cache, cache_index, chunk_lengths, cfg, local)
@@ -272,4 +295,5 @@ def mlp(p, x, cfg: ArchConfig):
         hidden = silu(dense(p["wg"], x, cim, "mlp")) * hidden
     else:
         hidden = F.gelu(hidden, approximate="tanh")
+    hidden = sharding.shard(hidden, "data", None, "model")
     return dense(p["wo"], hidden, cim, "mlp")

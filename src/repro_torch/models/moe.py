@@ -1,9 +1,17 @@
 """Mixture-of-Experts FFN: top-k token-choice routing with a fixed expert
-capacity, on one device.
+capacity, and expert parallelism; the port's counterpart of
+``repro.models.moe``.
 
-The port's counterpart of ``repro.models.moe`` without its grouped
-``shard_map`` dispatch (that waits for the parallel slice): every token of
-the flattened batch routes into one (E, cap, D) buffer.
+Without a mesh every token of the flattened batch routes into one (E, cap,
+D) buffer. Inside the SPMD program (``parallel.sharding.spmd``) dispatch
+is *grouped*, as the reference's ``shard_map`` groups it: each rank's
+tokens are its data shard's group and fill their own capacity slice, cap
+= max(4, ceil(t / nb * k / E * capacity_factor)) for the group's t / nb
+tokens, and the load-balancing means run over every group. The expert
+products are then split over "model": expert parallel (each "model" rank
+computes E / |model| experts, the outputs gathered) when E divides it,
+else intra-expert tensor parallel on the hidden dimension (the partial
+products summed over "model").
 
 Routing runs in f32 whatever the model dtype: the router is a CIM site
 (``moe_router``) whose weight is f32, then a softmax, the top-k choice
@@ -30,6 +38,7 @@ from repro_torch.core import costs
 from repro_torch.core.scopes import named_scope
 from repro_torch.kernels.ops import site_marker
 from repro_torch.models import layers as L
+from repro_torch.parallel import sharding
 
 __all__ = ["init_moe", "moe", "capacity", "route", "dispatch", "combine"]
 
@@ -111,6 +120,46 @@ def combine(out_buf: torch.Tensor, slot: torch.Tensor, keep: torch.Tensor,
     return weighted.reshape(-1, k, d).sum(dim=1)
 
 
+def _experts(ex, buf: torch.Tensor, cfg: ArchConfig, m_in: str = "",
+            m_out: str = "") -> torch.Tensor:
+    """The expert FFNs over a dispatch buffer (E, cap, D) -> (E, cap, D),
+    digital batched matmuls; inside the SPMD program split over "model"
+    (module docstring). ``m_in`` / ``m_out`` are the audit markers."""
+    e, f = cfg.n_experts, cfg.expert_d_ff
+    nm = sharding.model_shards()
+    ep = e % nm == 0
+    tp = nm > 1 and not ep and f % nm == 0
+    buf = sharding.shard(buf, "model" if ep else None, "data", None)
+    if nm > 1 and ep:
+        buf = sharding.chunk(buf, 0)
+    elif tp:
+        buf = sharding.copy_to_model(buf)
+
+    def weight(name, tp_dim):
+        w = ex[name].to(buf.dtype)
+        if nm > 1 and ep:
+            return sharding.chunk(w, 0)
+        return sharding.chunk(w, tp_dim) if tp else w
+
+    with named_scope(m_in), named_scope("cim_values"):
+        h = torch.bmm(buf, weight("wi", 2))
+    if cfg.gated_mlp:
+        with named_scope(m_in), named_scope("cim_values"):
+            hg = torch.bmm(buf, weight("wg", 2))
+        h = L.silu(hg) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    h = (sharding.shard(h, "model", "data", None) if ep
+         else sharding.shard(h, None, "data", "model"))
+    with named_scope(m_out), named_scope("cim_values"):
+        out_buf = torch.bmm(h, weight("wo", 1))
+    if nm > 1 and ep:
+        out_buf = sharding.all_gather(out_buf, 0)
+    elif tp:
+        out_buf = sharding.all_reduce_sum(out_buf, axes=("model",))
+    return sharding.shard(out_buf, "model" if ep else None, "data", None)
+
+
 def moe(p, x: torch.Tensor, cfg: ArchConfig,
         valid: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -127,9 +176,17 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig,
     vf = (torch.ones((t,), dtype=torch.bool, device=x.device)
           if valid is None else valid.reshape(t).to(torch.bool))
     probs, gate_vals, expert_idx = route(p, xf, cfg)
-    f_e = F.one_hot(expert_idx[:, 0], e).to(torch.float32).mean(dim=0)
-    aux = e * torch.sum(f_e * probs.mean(dim=0))
+    top1 = F.one_hot(expert_idx[:, 0], e).to(torch.float32)
+    nb = sharding.data_shards() if sharding.in_spmd() else 1
+    if nb > 1:
+        # the means over every group's tokens
+        f_e = sharding.all_reduce_sum(top1.sum(dim=0)) / (t * nb)
+        p_e = sharding.all_reduce_sum(probs.sum(dim=0)) / (t * nb)
+    else:
+        f_e, p_e = top1.mean(dim=0), probs.mean(dim=0)
+    aux = e * torch.sum(f_e * p_e)
 
+    # t is this group's token count under the SPMD program
     buf, slot, keep = dispatch(xf, expert_idx, vf, e, capacity(t, cfg))
     # the ledger counts the logical routed compute, t * k assignments
     # through each expert matmul, not the (E, cap) buffer; the products
@@ -142,20 +199,7 @@ def moe(p, x: torch.Tensor, cfg: ArchConfig,
     # audit markers at the recorded (logical) contracts, as the reference's
     m_in = site_marker("moe_expert", t * k, d, f)
     m_out = site_marker("moe_expert", t * k, f, d)
-    ex = p["experts"]
-    wi = ex["wi"].to(x.dtype)
-    with named_scope(m_in), named_scope("cim_values"):
-        h = torch.bmm(buf, wi)
-    if cfg.gated_mlp:
-        wg = ex["wg"].to(x.dtype)
-        with named_scope(m_in), named_scope("cim_values"):
-            hg = torch.bmm(buf, wg)
-        h = L.silu(hg) * h
-    else:
-        h = F.gelu(h, approximate="tanh")
-    wo = ex["wo"].to(x.dtype)
-    with named_scope(m_out), named_scope("cim_values"):
-        out_buf = torch.bmm(h, wo)
+    out_buf = _experts(p["experts"], buf, cfg, m_in, m_out)
     out = combine(out_buf, slot, keep, gate_vals, k).reshape(b, s, d)
     if cfg.moe_dense_residual:
         out = out + L.mlp(p["dense_mlp"], x, cfg)

@@ -24,6 +24,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import dense
+from repro_torch.parallel.sharding import shard
 
 __all__ = ["rglru_train", "rglru_decode", "rglru_prefill",
            "init_rglru_state", "init_lam", "softplus", "causal_conv",
@@ -128,7 +129,8 @@ def rglru_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         return a1 * a2, a2 * b1 + b2
 
     _, h = associative_scan(combine, (a, gated))
-    return dense(p["out_proj"], h.to(u.dtype), cfg.cim, "rglru")
+    h = shard(h.to(u.dtype), "data", None, "model")
+    return dense(p["out_proj"], h, cfg.cim, "rglru")
 
 
 def _recurrence_step(kernel, h, win, x_t, i_t, log_a_t):

@@ -26,6 +26,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scopes import named_scope
 from repro_torch.models.layers import dense, rmsnorm, silu
 from repro_torch.models.rglru import causal_conv, causal_conv_step, softplus
+from repro_torch.parallel.sharding import shard
 
 __all__ = ["ssm_train", "ssm_decode", "ssm_prefill", "init_ssm_state"]
 
@@ -66,6 +67,9 @@ def ssm_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     z, x, bmat, cmat, dt = _project(p, u, cfg)
     x = silu(causal_conv(x, p["conv"].to(x.dtype)))
     xh = x.reshape(b, s, nh, hd).to(torch.float32)
+    # SSD is parallel over heads: NH over "model", batch over data
+    xh = shard(xh, "data", None, "model", None)
+    dt = shard(dt, "data", None, "model")
     log_a = -dt * torch.exp(p["A_log"])[None, None, :]           # (B,S,NH) <= 0
     xc = xh.reshape(b, nc, ck, nh, hd)
     bc_ = bmat.reshape(b, nc, ck, n)
@@ -78,6 +82,7 @@ def ssm_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     ii = torch.arange(ck, device=u.device)
     causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
     decay = torch.exp(torch.where(causal, diff, float("-inf")))
+    decay = shard(decay, "data", None, None, None, "model")
     with named_scope("dig_ssm_ssd"):
         cb = torch.einsum("bgin,bgjn->bgij", cc_, bc_)
     att = cb[..., None] * decay * dtc[:, :, None, :, :]          # (B,NC,i,j,NH)
@@ -94,6 +99,7 @@ def ssm_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         before.append(h)                     # the state before chunk g
         h = chunk_decay[:, g, :, None, None] * h + chunk_state[:, g]
     h_before = torch.stack(before, dim=1)                        # (B,NC,NH,N,P)
+    h_before = shard(h_before, "data", None, "model", None, None)
     decay_in = torch.exp(cum)
     with named_scope("dig_ssm_ssd"):
         y_inter = torch.einsum("bgin,bgih,bghnp->bgihp", cc_, decay_in,
@@ -125,6 +131,7 @@ def _recurrence_step(p, cfg: ArchConfig, kernel, a_rate, h, win, x_t, b_t,
 def _out(p, y, z, u, cfg: ArchConfig):
     """The gated RMSNorm and the output projection. y: (B, S, d_inner)."""
     y = rmsnorm(p["out_norm"], y.to(u.dtype) * silu(z))
+    y = shard(y, "data", None, "model")
     return dense(p["out_proj"], y, cfg.cim, "ssm")
 
 

@@ -23,6 +23,12 @@ Three execution paths share the layer code:
   decode           a single token against per-layer caches
 Cached paths update the cache dicts in place (tensors written in place,
 recurrent states replaced) and return the same dict.
+
+Under an active mesh (``parallel.sharding.use_mesh``) DTensor parameters
+are gathered whole at the top of ``forward``, and ``train_loss`` runs the
+SPMD program of ``parallel.sharding``: each rank takes its rows of the
+batch, and the loss is the mean over every rank's rows. On a 1 x 1 mesh
+it runs the operations of the unmeshed path.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from repro_torch.models.rglru import (init_lam, init_rglru_state,
                                       rglru_train)
 from repro_torch.models.ssm import (init_ssm_state, ssm_decode, ssm_prefill,
                                     ssm_train)
+from repro_torch.parallel import sharding
 
 __all__ = [
     "init_params",
@@ -344,10 +351,13 @@ def forward(
     each full super-block in the backward (``_superblock_fn``).
     """
     _check_blocks(cfg)
+    if sharding.get_mesh() is not None:
+        params = sharding.gather_tree(params)
     if cfg.input_mode == "tokens":
         x = params["embed"][inputs].to(_dtype(cfg))
     else:
         x = inputs.to(_dtype(cfg))
+    x = sharding.shard(x, "data", None, None)
     b, s = x.shape[:2]
     dev = x.device
     if cache is not None:
@@ -365,6 +375,7 @@ def forward(
         for i in range(0, n_full, period):
             x, aux = _checkpoint(cfg, block, x, positions,
                                  params["layers"][i:i + period])
+            x = sharding.shard(x, "data", None, "model")
             aux_total = aux_total + aux
         layers = range(n_full, cfg.n_layers)
     else:
@@ -386,6 +397,7 @@ def forward(
     else:
         logits = cim_matmul(x, params["embed"].T.to(x.dtype), cfg.cim,
                             site="head", logical_n=cfg.vocab_size)
+    logits = sharding.shard(logits, "data", None, "model")
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(logits.shape[-1], device=dev) >= cfg.vocab_size
         logits = torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
@@ -420,7 +432,15 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _checkpoint(cfg: ArchConfig, fn, *args):
     """``fn(*args)`` recomputed in the backward: everything under
-    ``remat_policy="full"``, all but the matmul outputs under "dots"."""
+    ``remat_policy="full"``, all but the matmul outputs under "dots".
+    Inside the SPMD program the recomputation runs in it too (the backward
+    runs after ``train_loss`` has left it), on the same mesh."""
+    if sharding.in_spmd():
+        mesh, body = sharding.get_mesh(), fn
+
+        def fn(*a):
+            with sharding.use_mesh(mesh), sharding.spmd():
+                return body(*a)
     kw = {}
     if cfg.remat_policy == "dots":
         kw["context_fn"] = functools.partial(
@@ -434,13 +454,43 @@ def train_loss(params, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01):
     """Mean next-token cross-entropy (masked when ``batch`` has a "mask")
     plus ``aux_weight`` times the MoE aux loss. ``batch``: {"inputs": (B, S)
     ids or (B, S, D) embeddings, "labels": (B, S) ids[, "mask": (B, S)]}.
-    Returns (total, {"loss", "aux_loss", "total"})."""
+    Returns (total, {"loss", "aux_loss", "total"}).
+
+    Under an active mesh the batch is the global one (the same on every
+    rank); B must divide over the batch axes. Each rank runs its rows
+    inside ``sharding.spmd()``; the loss is the mean over every rank's
+    rows."""
+    mesh = sharding.get_mesh()
+    if mesh is None:
+        return _loss(params, batch, cfg, aux_weight)
+    nb = sharding.data_shards(mesh)
+    b = batch["inputs"].shape[0]
+    if b % nb:
+        raise ValueError(f"batch {b} does not divide over {nb} data shards")
+    if nb > 1:
+        rows = slice(sharding.data_index(mesh) * (b // nb),
+                     (sharding.data_index(mesh) + 1) * (b // nb))
+        batch = {k: v[rows] for k, v in batch.items()}
+    with sharding.spmd():
+        return _loss(params, batch, cfg, aux_weight, nb)
+
+
+def _loss(params, batch, cfg, aux_weight, shards: int = 1):
     logits, aux, _ = forward(params, batch["inputs"], cfg)
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"][..., None].to(
         torch.int64))[..., 0]
     mask = batch.get("mask")
-    if mask is None:
+    if shards > 1:
+        # the sums of every rank's rows (their gradients pass through)
+        if mask is None:
+            loss = sharding.all_reduce_sum(torch.sum(nll)) / (nll.numel()
+                                                              * shards)
+        else:
+            loss = sharding.all_reduce_sum(torch.sum(nll * mask)) \
+                / torch.clamp(sharding.all_reduce_sum(torch.sum(mask)),
+                              min=1.0)
+    elif mask is None:
         loss = torch.mean(nll)
     else:
         loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

@@ -7,7 +7,9 @@ layout (one directory per step):
         meta.json                  step, leaf manifest with sha256
         arr_00000.npy ...          one file per leaf of the tree
 
-A tree is a nested dict / list of tensors (``repro_torch.tree``); a leaf's
+A tree is a nested dict / list of tensors (``repro_torch.tree``; a DTensor
+leaf is saved as its full value, and restored onto the template's device
+as a plain tensor, for ``fault.reshard_tree`` to place); a leaf's
 path (``params/layers/0/attn/wq/w``) keys the manifest. numpy has no
 bfloat16, so a bf16 leaf is stored as its 16-bit pattern (uint16) and its
 manifest entry says "bfloat16". Restore picks the newest *complete* step
@@ -38,6 +40,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.tree import tree_map_with_path, tree_paths
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
@@ -45,8 +48,11 @@ __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
 
 
 def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """A host copy of ``t`` as numpy, and its torch dtype's name."""
+    """A host copy of ``t`` as numpy (a DTensor's full value), and its
+    torch dtype's name."""
     name = str(t.dtype).replace("torch.", "")
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), name

@@ -61,9 +61,10 @@ def schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def init_opt_state(params, cfg: OptimizerConfig) -> dict:
-    """Zero moments (f32, on each parameter's device) and a zero count."""
+    """Zero moments (f32, on each parameter's device, placed as it is when
+    it is a DTensor) and a zero count."""
     def zeros32(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     count = torch.zeros((), dtype=torch.int32,
                         device=tree_leaves(params)[0].device)

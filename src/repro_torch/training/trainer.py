@@ -98,9 +98,10 @@ def train(arch: ArchConfig, tcfg: TrainConfig, pipeline, *, seed: int = 0,
           heartbeat_dir: Optional[str] = None,
           device: Optional[Union[str, torch.device]] = None) -> dict:
     """Run (or resume) training on ``device`` (None: the card); returns the
-    last step's metrics as floats. With ``ckpt_dir`` set it resumes from the
-    freshest valid checkpoint of either tier and saves asynchronously; the
-    last step is always saved to the durable tier."""
+    last step's metrics as floats, by name in sorted order (as the
+    reference's jitted step returns them). With ``ckpt_dir`` set it
+    resumes from the freshest valid checkpoint of either tier and saves
+    asynchronously; the last step is always saved to the durable tier."""
     device = resolve_device(device)
     if device.type == "cuda":
         require_full_f32()
@@ -142,4 +143,4 @@ def train(arch: ArchConfig, tcfg: TrainConfig, pipeline, *, seed: int = 0,
     finally:
         if writer:
             writer.close()
-    return {k: float(v) for k, v in metrics.items()}
+    return {k: float(v) for k, v in sorted(metrics.items())}
