@@ -160,6 +160,28 @@ seconds:
             --slots 8 --ctx 512`` through its ``main``, as the two-prompt
             demo and with ``--traffic 16``: 85 kernel launches a dispatch,
             pJ/token within ``MC_TOL`` of ``serve_energy``'s;
+5g. spmd_serve  after the analysis: ``serve``'s traffic under
+            ``local_mesh()`` (a 1 x 1 NCCL mesh), the SPMD serving program
+            of ``prefill_step`` / ``decode_step``: streams bitwise equal to
+            ``serve``'s, 85 kernel launches a dispatch; ``serve``'s path
+            with no mesh just before and after it, as its time's baseline;
+    roofline_card  ``launch.roofline`` on a 1 x 1 mesh of the ``fake``
+            group for the shapes this run measures (paper-cim-120m decode
+            at 8 slots / ctx 512, the no-cache prefill forward at 8 x 64,
+            the train step at 8 x 256), beside the measured ms (``serve``'s
+            step median, a timed forward, ``train``'s step median); the
+            CIM flops must equal twice the energy ledger's MACs for those
+            shapes (the train step's with remat's recomputation);
+    dryrun  after ``launch_serve``: ``launch.dryrun`` over the 10 archs x 4
+            shapes on the 16 x 16 mesh (256 ranks of the ``fake`` group,
+            ``meta`` tensors, 6 worker processes), and on the 2 x 16 x 16
+            mesh when the first sweep took under a minute: 0 errors and
+            exactly 7 skipped cells a mesh, one ``dryrun_cell`` line a cell
+            (H100 data-sheet model outputs);
+    examples  the five ``repro_torch.examples`` through their ``main`` on
+            the card with short arguments: ``serve_decode`` (paper-cim-120m
+            at full width) 85 kernel launches a dispatch, ``train_lm``
+            (``--cim grmac``, 8 x 256, 2 steps) 169 a step;
 6. forward_musicgen  musicgen-medium (embedding inputs, GELU MLP) at full
             width and depth: seeded (8, S, 1536) embeddings through
             ``prefill_step`` and decode steps, through the kernel and
@@ -594,6 +616,193 @@ def analysis_audit(card: str) -> None:
     if bad:
         fail(f"analysis_audit: {len(bad)} audits differ from the golden or "
              f"leak: {bad}")
+
+
+DRYRUN_WORKERS = 6     # processes of the dry-run sweep (8 host cores)
+DRYRUN_SKIPPED = 7     # long_500k cells of the full-attention archs
+DRYRUN_SINGLE_POD_S = 60   # the multi-pod sweep runs if one pod took less
+
+
+def dryrun_one(arch: str, multi_pod: bool, out_dir: str) -> list:
+    """The dry run's four shapes of one arch on one production mesh, in a
+    worker process (``meta`` tensors on the ``fake`` group: the host's
+    CPU alone)."""
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.specs import SHAPES
+
+    rows = dryrun.sweep([arch], list(SHAPES), [multi_pod], out_dir=out_dir,
+                        verbose=False)
+    keep = ("arch", "shape", "mesh", "status", "reason", "error", "trace_s",
+            "fits", "bytes_per_device", "cost", "roofline")
+    return [{k: r[k] for k in keep if k in r} for r in rows]
+
+
+def dryrun_phase(card: str) -> None:
+    """``launch.dryrun`` over the 10 ``ARCHS`` x 4 shapes on the 16 x 16
+    mesh (256 ranks of the ``fake`` group), in ``DRYRUN_WORKERS`` spawned
+    processes, and on the 2 x 16 x 16 mesh too when the first sweep took
+    under ``DRYRUN_SINGLE_POD_S``: 0 errors and exactly
+    ``DRYRUN_SKIPPED`` skipped cells a mesh. One ``dryrun_cell`` line a
+    cell (per-device GB, fits, flops, collective GB, dominant term,
+    roofline fraction: H100 data-sheet model outputs, not measurements)."""
+    import multiprocessing
+
+    from repro_torch.launch.dryrun import ARCHS
+
+    # the trains of the largest archs are the longest traces
+    order = sorted(ARCHS, key=lambda a: a not in (
+        "grok-1-314b", "arctic-480b", "recurrentgemma-9b", "chameleon-34b"))
+    sweeps, rows = [], []
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as out, \
+            multiprocessing.get_context("spawn").Pool(DRYRUN_WORKERS) as pool:
+        for multi_pod in (False, True):
+            if multi_pod and time.perf_counter() - t0 >= DRYRUN_SINGLE_POD_S:
+                break
+            t1 = time.perf_counter()
+            for got in pool.starmap(dryrun_one, [(a, multi_pod, out)
+                                                 for a in order]):
+                rows.extend(got)
+            sweeps.append({"mesh": "2x16x16" if multi_pod else "16x16",
+                           "seconds": time.perf_counter() - t1})
+    bad = []
+    for sweep in sweeps:
+        mine = [r for r in rows if r["mesh"] == sweep["mesh"]]
+        sweep.update({st: sum(r["status"] == st for r in mine)
+                      for st in ("ok", "skipped", "error")})
+        if sweep["error"] or sweep["skipped"] != DRYRUN_SKIPPED \
+                or sweep["ok"] + sweep["skipped"] != 40:
+            bad.append(sweep)
+    for r in rows:
+        if r["status"] != "ok":
+            emit({"phase": "dryrun_cell", **{k: r.get(k) for k in (
+                "arch", "shape", "mesh", "status", "reason", "error")}})
+            continue
+        b, c, f = r["bytes_per_device"], r["cost"], r["roofline"]
+        emit({"phase": "dryrun_cell", "arch": r["arch"], "shape": r["shape"],
+              "mesh": r["mesh"], "status": "ok", "trace_s": r["trace_s"],
+              "peak_est_gb": b["peak_est"] / 1e9, "fits": r["fits"],
+              "flops_per_device": c["flops_per_device"],
+              "collective_gb_per_device":
+                  c["collective_bytes_per_device"] / 1e9,
+              "dominant": f["dominant"], "hlo_per_model": f["hlo/model"],
+              "roofline_fraction": f["roofline_fraction"]})
+    emit({"phase": "dryrun", "sweeps": sweeps, "workers": DRYRUN_WORKERS,
+          "wall_seconds": time.perf_counter() - t0,
+          "fit": sum(bool(r.get("fits")) for r in rows),
+          "model_outputs_of": "H100 SXM data-sheet figures (launch.mesh.HW)",
+          "host_card": card})
+    if bad:
+        fail(f"dryrun: errors or skips other than {DRYRUN_SKIPPED}: {bad}")
+
+
+def roofline_card_phase(arch, card: str, measured_ms: dict) -> None:
+    """The port's roofline of the shapes this run measures, on a 1 x 1
+    mesh of the ``fake`` group: paper-cim-120m decode at 8 slots / ctx
+    512, the no-cache prefill forward at 8 x 64 and the train step at 8 x
+    256, each beside its measured ms; the CIM flops must equal twice the
+    energy ledger's MACs for those shapes (the train step's: the forward's
+    and remat's recomputation of every super-block's projections)."""
+    import torch
+
+    from repro_torch.core import costs
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.roofline import roofline_from_trace
+
+    cases = {"decode": specs.ShapeCase("decode_8x512", 512, 8, "decode"),
+             "prefill": specs.ShapeCase("prefill_8x64", 64, 8, "prefill"),
+             "train": specs.ShapeCase("train_8x256", 256, 8, "train")}
+    ledgers = {"decode": costs.trace_decode(arch, batch=8, ctx=512),
+               "prefill": costs.trace_prefill(arch, bucket=64, batch=8,
+                                              ctx=512),
+               "train": costs.trace_train(arch, batch=8, seq_len=256)}
+    bad = []
+    with dryrun.fake_world(1):
+        mesh = make_mesh((1, 1), ("data", "model"))
+        for kind, case in cases.items():
+            t0 = time.perf_counter()
+            cell = specs.make_cell(arch, case, mesh,
+                                   cache_dtype=getattr(torch, arch.dtype))
+            rep, mem, cost = roofline_from_trace(
+                arch.name, case.name, "1x1", 1, cell.fn, cell.args, arch,
+                case)
+            del cell
+            led = ledgers[kind]
+            want = 2 * led.macs()
+            if kind == "train" and arch.remat:
+                want += 2 * (led.macs() - led.macs("head"))
+            bound = 1e3 * max(rep.t_compute, rep.t_memory, rep.t_collective)
+            emit({"phase": "roofline_card", "arch": arch.name, "of": kind,
+                  "shape": [case.global_batch, case.seq_len],
+                  "flops": cost["flops_per_device"],
+                  "cim_flops": cost["cim_flops_per_device"],
+                  "ledger_ops": want, "bytes": cost["bytes_per_device"],
+                  "collective_bytes": cost["collective_bytes_per_device"],
+                  "t_compute_ms": 1e3 * rep.t_compute,
+                  "t_memory_ms": 1e3 * rep.t_memory,
+                  "dominant": rep.dominant, "bound_ms": bound,
+                  "measured_ms": measured_ms[kind],
+                  "measured_over_bound": measured_ms[kind] / bound,
+                  "peak_est_gb": mem["peak_est"] / 1e9,
+                  "trace_s": time.perf_counter() - t0, "card": card})
+            if cost["cim_flops_per_device"] != want:
+                bad.append((kind, cost["cim_flops_per_device"], want))
+    if bad:
+        fail(f"roofline_card: CIM flops differ from the ledger's: {bad}")
+
+
+def examples_phase(card: str, reset_counts) -> dict:
+    """The five examples through their ``main`` on the card, short
+    arguments, their output captured, the counts set to 0 before each:
+    ``serve_decode`` (paper-cim-120m at full width) 85 GR-MAC launches a
+    dispatch, ``train_lm`` (``--cim grmac``, 8 x 256) 169 a step. Returns
+    the launches by example."""
+    import shutil
+
+    from repro_torch.examples import (design_explorer, quickstart,
+                                      serve_decode, site_pareto, train_lm)
+    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
+
+    ckpt = tempfile.mkdtemp(prefix="repro_torch_train_lm_")
+    runs = (("quickstart", quickstart.main, []),
+            ("design_explorer", design_explorer.main, []),
+            ("site_pareto", site_pareto.main, []),
+            ("serve_decode", serve_decode.main, ["--steps", "8"]),
+            ("train_lm", train_lm.main, ["--cim", "grmac", "--steps", "2",
+                                         "--ckpt", ckpt]))
+    launches, bad = {}, []
+    try:
+        for name, fn, argv in runs:
+            reset_counts()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                res = fn(argv)
+            secs = time.perf_counter() - t0
+            n = grmac_matmul_cuda.launches
+            launches[name] = n
+            want = None
+            if name == "serve_decode":
+                want = 85 * (res.stats["prefill_dispatches"]
+                             + res.stats["decode_steps"])
+            elif name == "train_lm":
+                want = 169 * 2
+            emit({"phase": "examples", "example": name, "argv": argv,
+                  "seconds": secs, "kernel_launches": n,
+                  "expected_launches": want,
+                  "tail": buf.getvalue().strip().splitlines()[-3:],
+                  "card": card})
+            if want is not None and n != want:
+                bad.append((name, n, want))
+            del res
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    if bad:
+        fail(f"examples: GR-MAC launches differ: {bad}")
+    return launches
 
 
 def main() -> int:
@@ -1820,6 +2029,7 @@ def main() -> int:
         prof = profiled("train", "train_step",
                         lambda: step_fn(p, o, batch), 1)
         med = float(np.median(step_ms))
+        step_median["train"] = med
         emit({"phase": "train", "arch": arch.name, "batch": [8, 256],
               "rows_per_projection": 8 * 256, "remat": arch.remat,
               "remat_policy": arch.remat_policy, "optimizer": "adamw",
@@ -2082,6 +2292,66 @@ def main() -> int:
             torch.cuda.empty_cache()
         return rows
 
+    # ------------------------------------------ spmd_serve, roofline_card
+    def spmd_serve(arch, params, prompts):
+        """``serve``'s traffic under ``local_mesh()`` (a 1 x 1 NCCL mesh):
+        the SPMD program's serving path, every collective over one rank
+        skipped; the streams must equal ``serve``'s bitwise, 85 kernel
+        launches a dispatch. ``serve``'s path with no mesh runs just
+        before and just after it (its launches not counted): a baseline
+        for the step time at the same point of the run."""
+        def no_mesh_ms():
+            engine, _, ms, _, _ = run_engine(arch, params, prompts, 32,
+                                             dict(max_ctx=512), None)
+            del engine
+            return ms
+
+        base_ms = no_mesh_ms()
+        reset_counts()
+        with local_mesh() as mesh, use_mesh(mesh):
+            engine, prefill_ms, decode_ms, peak, last = run_engine(
+                arch, params, prompts, 32, dict(max_ctx=512), None)
+            streams = [list(t) for t in engine.tokens]
+            dispatches = (engine.stats["prefill_dispatches"]
+                          + engine.stats["decode_steps"])
+            mesh_shape = list(mesh.shape)
+        launches = grmac_matmul_cuda.launches
+        launches_by_path["spmd_serve"] = launches
+        base_ms += no_mesh_ms()
+        same = streams == served_streams["serve"]
+        emit({"phase": "spmd_serve", "arch": arch.name, "mesh": mesh_shape,
+              "streams_equal_to_serve": same, "kernel_launches": launches,
+              "expected_launches": per_forward(arch) * dispatches,
+              "decode_ms_median": float(np.median(decode_ms)),
+              "serve_decode_ms_median": step_median["serve"],
+              "no_mesh_decode_ms_median_beside": float(np.median(base_ms)),
+              "prefill_ms": prefill_ms, "peak_mem_bytes": peak,
+              "card": card})
+        if not same or launches != per_forward(arch) * dispatches:
+            fail("spmd_serve: the streams under a 1 x 1 mesh differ from "
+                 f"serve's, or {launches} kernel launches for {dispatches} "
+                 "dispatches")
+        del engine, last
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def prefill_forward_ms(arch, params):
+        """Median ms of the no-cache forward at 8 x 64 on the served
+        (packed) weights, the dry run's prefill cell at this run's shape."""
+        packed = pack_params(params, arch)
+        toks = torch.tensor(rng.integers(0, arch.vocab_size, (8, 64)),
+                            device=dev)
+        ms = []
+        with torch.no_grad():
+            forward(packed, toks, arch)
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                forward(packed, toks, arch)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t0))
+        return float(np.median(ms))
+
     # ----------------------------------------------------------- analysis
     from repro_torch.analysis import invariants as inv
 
@@ -2339,16 +2609,29 @@ def main() -> int:
     analysis_audit(card)
     analysis_sanitize(paper, params, prompts, served_streams["serve"])
     analysis_invariants(paper, params, prompts)
+    seconds("analysis")
+    spmd_serve(paper, params, prompts)
+    seconds("spmd_serve")
+    roofline_card_phase(paper, card, {
+        "decode": step_median["serve"],
+        "prefill": prefill_forward_ms(paper, params),
+        "train": step_median["train"]})
     del params
     gc.collect()
     torch.cuda.empty_cache()
-    seconds("analysis")
+    seconds("roofline_card")
 
     # -------------------------------------------- train_drill, launch_serve
     train_drill(get_config("paper-cim-120m"))
     seconds("train_drill")
     launch_serve(pj)
     seconds("launch_serve")
+    dryrun_phase(card)
+    seconds("dryrun")
+    for name, n in examples_phase(card, reset_counts).items():
+        if n:
+            launches_by_path[f"examples_{name}"] = n
+    seconds("examples")
 
     def with_grmac(arch):
         # the default design: row, FP6_E3M2 x FP4_E2M1, n_r 32, ENOB 8

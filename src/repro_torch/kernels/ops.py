@@ -40,7 +40,10 @@ design into the active ``core.costs`` ledger (a no-op outside
 the physical one (the LM head's true ``vocab_size``). On a ``meta`` tensor
 (the ledger's shape-only trace) the call records and returns an empty
 tensor of the output's shape: neither the kernel nor the plain version
-runs.
+runs; under autograd that tensor carries the STE's backward, so a train
+trace still differentiates through the projection. Each such call is
+told to the ``META_WATCHERS`` with its operands and N, since no op of it
+reaches a dispatch mode that counts flops and bytes.
 """
 from __future__ import annotations
 
@@ -62,9 +65,13 @@ from .packed import EPS as _EPS
 from .packed import PackedWeight, pack_weight, unpack_weight
 from .ref import grmac_matmul_ref
 
-__all__ = ["cim_matmul", "site_marker", "plain_on_meta"]
+__all__ = ["cim_matmul", "site_marker", "plain_on_meta", "META_WATCHERS"]
 
 _PLAIN_ON_META = [False]
+# callables told (x, w, N) of every call the ``meta`` short-circuit
+# answers without a matmul (its output: x's dtype, N columns), so a trace
+# can price the work it hides (``launch.roofline.TraceCounter``)
+META_WATCHERS: list = []
 
 
 def site_marker(site: Optional[str], m: int, k: int, n: int) -> str:
@@ -187,12 +194,31 @@ class _CimMatmulSTE(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        # digital by design: the backward never reaches the analog array
-        with named_scope("dig_ste_bwd"):
-            gx = (g @ w.T.to(g.dtype)).to(x.dtype)
-            gw = (x.T.to(g.dtype) @ g).to(w.dtype)
-        return gx, gw, None, None, None
+        return (*_ste_backward(ctx, g), None, None, None)
+
+
+def _ste_backward(ctx, g):
+    x, w = ctx.saved_tensors
+    # digital by design: the backward never reaches the analog array
+    with named_scope("dig_ste_bwd"):
+        gx = (g @ w.T.to(g.dtype)).to(x.dtype)
+        gw = (x.T.to(g.dtype) @ g).to(w.dtype)
+    return gx, gw
+
+
+class _MetaSTE(torch.autograd.Function):
+    """The ``meta`` short-circuit of a differentiated call: an empty
+    forward (no CIM numerics on shapes) and the STE's backward, whose
+    digital matmuls a train trace (``launch.roofline``) counts."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return x.new_empty(x.shape[0], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        return _ste_backward(ctx, g)
 
 
 def cim_matmul(
@@ -222,6 +248,15 @@ def cim_matmul(
     ledger_n = n if logical_n is None else logical_n
     costs.record_matmul(site, m, k, ledger_n, eff)
     if x.device.type == "meta" and not _PLAIN_ON_META[-1]:
+        # told first: a checkpoint's recomputation may stop inside the
+        # apply below, once the backward has what it needs, where the
+        # device has launched the projection already
+        for watch in META_WATCHERS:
+            watch(x, w, n)
+        if (torch.is_grad_enabled() and not isinstance(w, PackedWeight)
+                and (x.requires_grad or w.requires_grad)):
+            # a train trace: the STE's digital backward still runs
+            return _MetaSTE.apply(x.reshape(m, k), w).reshape(*lead, n)
         return x.new_empty(*lead, n)
     with named_scope(site_marker(site, m, k, ledger_n)):
         if isinstance(w, PackedWeight):

@@ -24,11 +24,22 @@ Three execution paths share the layer code:
 Cached paths update the cache dicts in place (tensors written in place,
 recurrent states replaced) and return the same dict.
 
-Under an active mesh (``parallel.sharding.use_mesh``) DTensor parameters
-are gathered whole at the top of ``forward``, and ``train_loss`` runs the
+Under an active mesh (``parallel.sharding.use_mesh``) ``train_loss``,
+``prefill_step``, ``decode_step`` and the no-cache ``forward`` run the
 SPMD program of ``parallel.sharding``: each rank takes its rows of the
-batch, and the loss is the mean over every rank's rows. On a 1 x 1 mesh
-it runs the operations of the unmeshed path.
+batch (a DTensor's local rows, or its slice of a plain global batch) and
+runs them inside ``sharding.spmd()``; the loss is the mean over every
+rank's rows. A DTensor parameter is gathered to its full size where it is
+used: each layer's (each super-block's under remat, inside the
+checkpointed function, so the backward gathers again and saves only the
+DTensor), the embedding, the final norm and the head, so a rank never
+holds the whole model at once. A cache is a tree of DTensors placed as
+``launch.specs.cache_spec_tree`` says (rows over the batch axes; a global
+KV's sequence, SSM heads, RG-LRU width and conv channels over "model",
+or over every axis for one row): each layer gathers its own leaves'
+split dimensions, runs on the full tensors, and writes its chunk back in
+place. On a 1 x 1 mesh the program runs the operations of the unmeshed
+path.
 """
 from __future__ import annotations
 
@@ -52,6 +63,7 @@ from repro_torch.models.rglru import (init_lam, init_rglru_state,
 from repro_torch.models.ssm import (init_ssm_state, ssm_decode, ssm_prefill,
                                     ssm_train)
 from repro_torch.parallel import sharding
+from repro_torch.tree import tree_paths
 
 __all__ = [
     "init_params",
@@ -351,10 +363,19 @@ def forward(
     each full super-block in the backward (``_superblock_fn``).
     """
     _check_blocks(cfg)
-    if sharding.get_mesh() is not None:
-        params = sharding.gather_tree(params)
+    mesh = sharding.get_mesh()
+    if mesh is not None and not sharding.in_spmd():
+        def run(inputs, lanes, cache):
+            return forward(params, inputs, cfg, cache=cache, **lanes)
+        logits, aux, cache = _spmd_serve(
+            mesh, run, inputs, cache, cache_index=cache_index,
+            positions=positions, chunk_lengths=chunk_lengths, active=active)
+        return logits, aux, cache
+    # a DTensor parameter is gathered where it is used; plain ones as is
+    gather = (sharding.gather_tree if mesh is not None and any(
+        sharding.is_dtensor(t) for _, t in tree_paths(params)) else _same)
     if cfg.input_mode == "tokens":
-        x = params["embed"][inputs].to(_dtype(cfg))
+        x = sharding.gather_full(params["embed"])[inputs].to(_dtype(cfg))
     else:
         x = inputs.to(_dtype(cfg))
     x = sharding.shard(x, "data", None, None)
@@ -371,7 +392,7 @@ def forward(
         # the reference checkpoints its scanned super-blocks, not the tail
         period = cfg.pattern_period()
         n_full = cfg.n_layers // period * period
-        block = _superblock_fn(cfg)
+        block = _superblock_fn(cfg, gather)
         for i in range(0, n_full, period):
             x, aux = _checkpoint(cfg, block, x, positions,
                                  params["layers"][i:i + period])
@@ -383,20 +404,24 @@ def forward(
     kinds = cfg.blocks()
     for i in layers:
         c = cache["layers"][i] if cache is not None else None
-        x, aux = _apply_layer(kinds[i], params["layers"][i], x, cfg,
+        c, put_back = _layer_cache(c) if mesh is not None else (c, None)
+        x, aux = _apply_layer(kinds[i], gather(params["layers"][i]), x, cfg,
                               positions, c, cache_index, chunk_lengths,
                               active)
+        if put_back is not None:
+            put_back(c)
         if aux is not None:
             aux_total = aux_total + aux
-    x = L.rmsnorm(params["final_norm"], x)
+    x = L.rmsnorm(gather(params["final_norm"]), x)
     # the LM head is a CIM site in both tied and untied form (served params
     # carry a tied head's packed embed.T as "lm_head")
     if "lm_head" in params:
-        logits = L.dense(params["lm_head"], x, cfg.cim, "head",
+        logits = L.dense(gather(params["lm_head"]), x, cfg.cim, "head",
                          logical_n=cfg.vocab_size)
     else:
-        logits = cim_matmul(x, params["embed"].T.to(x.dtype), cfg.cim,
-                            site="head", logical_n=cfg.vocab_size)
+        logits = cim_matmul(
+            x, sharding.gather_full(params["embed"]).T.to(x.dtype), cfg.cim,
+            site="head", logical_n=cfg.vocab_size)
     logits = sharding.shard(logits, "data", None, "model")
     if cfg.padded_vocab != cfg.vocab_size:
         pad = torch.arange(logits.shape[-1], device=dev) >= cfg.vocab_size
@@ -405,14 +430,102 @@ def forward(
     return logits, aux_total, cache
 
 
-def _superblock_fn(cfg: ArchConfig):
+def _same(tree):
+    return tree
+
+
+def _layer_cache(c: Optional[dict]):
+    """One layer's cache as the layer runs on it inside the SPMD program:
+    a DTensor leaf as its local rows with every other split dimension
+    gathered (a global KV's sequence, SSM heads, RG-LRU width, conv
+    channels; a dimension split over a mesh dimension of one rank is
+    whole already). Returns (the local cache, ``put_back``),
+    ``put_back(c)`` writing each leaf's own chunk of the layer's result
+    into the DTensor in place; (c, None) for a plain cache."""
+    if c is None or not any(sharding.is_dtensor(t) for t in c.values()):
+        return c, None
+    from torch.distributed.tensor import DTensor, Replicate
+
+    local, views, full = {}, {}, {}
+    for name, t in c.items():
+        views[name] = t.to_local()
+        sizes = t.device_mesh.shape
+        rows = [p if p.is_shard(0) or sizes[i] == 1 else Replicate()
+                for i, p in enumerate(t.placements)]
+        if rows == list(t.placements):
+            local[name] = views[name]
+        else:
+            local[name] = t.redistribute(t.device_mesh, rows).to_local()
+            full[name] = rows
+
+    def put_back(new: dict) -> None:
+        for name, t in c.items():
+            out = new[name]
+            if name in full:
+                out = DTensor.from_local(
+                    out, t.device_mesh, full[name], run_check=False
+                ).redistribute(t.device_mesh, t.placements).to_local()
+            if out is not views[name]:
+                views[name].copy_(out)
+
+    return local, put_back
+
+
+def _spmd_serve(mesh, run, inputs, cache, **lanes):
+    """``run(inputs, lanes, cache) -> (*outputs, cache)`` as the SPMD
+    program: each rank runs its rows of ``inputs`` and of the per-lane
+    ``lanes`` (``sharding.local_rows``) inside ``sharding.spmd()``. The
+    batch is split when it divides over the batch axes, else every rank
+    runs all of it. Outputs with a
+    batch dimension come back as DTensors placed by rows when ``inputs``
+    was a DTensor, else gathered to the global batch. A split batch needs
+    a cache of DTensors (``launch.specs.cache_spec_tree``): a plain cache
+    there would hold stale rows of the others."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    b = inputs.shape[0]
+    nb = sharding.data_shards(mesh)
+    split = nb > 1 and b % nb == 0
+    if split and cache is not None and not any(
+            sharding.is_dtensor(t) for _, t in tree_paths(cache)):
+        raise ValueError(
+            f"a batch split over {nb} data shards needs a cache of "
+            "DTensors (place it by launch.specs.cache_spec_tree)")
+
+    def local(t):
+        if b % nb == 0:
+            return sharding.local_rows(t, mesh)
+        return t.full_tensor() if sharding.is_dtensor(t) else t
+
+    as_dtensor = sharding.is_dtensor(inputs)
+    with sharding.spmd():
+        *outs, cache = run(local(inputs),
+                           {k: local(v) for k, v in lanes.items()}, cache)
+    ba = sharding.batch_axes(mesh) or ()
+    placements = [Shard(0) if split and a in ba else Replicate()
+                  for a in mesh.mesh_dim_names]
+
+    def wrap(t):
+        if t.dim() == 0:
+            return t
+        if as_dtensor:
+            return DTensor.from_local(t, mesh, placements, run_check=False)
+        return sharding.gather_rows(t) if split else t
+
+    return (*[wrap(t) for t in outs], cache)
+
+
+def _superblock_fn(cfg: ArchConfig, gather=_same):
     """The train forward of one super-block (``block_pattern``'s layers in
-    order): (x, positions, layer params) -> (x, the MoE aux loss)."""
+    order): (x, positions, layer params) -> (x, the MoE aux loss); each
+    layer's params pass through ``gather`` (``sharding.gather_tree`` under
+    a mesh) inside, so that a checkpointed call gathers them again in
+    its recomputation."""
     def run(x, positions, layer_params):
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p_l in zip(cfg.block_pattern, layer_params):
-            x, aux = _apply_layer(kind, p_l, x, cfg, positions, None, None,
-                                  None, None)
+            x, aux = _apply_layer(kind, gather(p_l), x, cfg, positions, None,
+                                  None, None, None)
             if aux is not None:
                 aux_total = aux_total + aux
         return x, aux_total
@@ -456,10 +569,10 @@ def train_loss(params, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01):
     ids or (B, S, D) embeddings, "labels": (B, S) ids[, "mask": (B, S)]}.
     Returns (total, {"loss", "aux_loss", "total"}).
 
-    Under an active mesh the batch is the global one (the same on every
-    rank); B must divide over the batch axes. Each rank runs its rows
-    inside ``sharding.spmd()``; the loss is the mean over every rank's
-    rows."""
+    Under an active mesh the batch is the global one: plain tensors (the
+    same on every rank) or DTensors placed by rows over the batch axes; B
+    must divide over the batch axes. Each rank runs its rows inside
+    ``sharding.spmd()``; the loss is the mean over every rank's rows."""
     mesh = sharding.get_mesh()
     if mesh is None:
         return _loss(params, batch, cfg, aux_weight)
@@ -467,10 +580,7 @@ def train_loss(params, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01):
     b = batch["inputs"].shape[0]
     if b % nb:
         raise ValueError(f"batch {b} does not divide over {nb} data shards")
-    if nb > 1:
-        rows = slice(sharding.data_index(mesh) * (b // nb),
-                     (sharding.data_index(mesh) + 1) * (b // nb))
-        batch = {k: v[rows] for k, v in batch.items()}
+    batch = {k: sharding.local_rows(v, mesh) for k, v in batch.items()}
     with sharding.spmd():
         return _loss(params, batch, cfg, aux_weight, nb)
 
@@ -505,7 +615,14 @@ def decode_step(params, token, cfg: ArchConfig, cache, cache_index,
 
     ``cache_index`` is a scalar or per-lane (B,) write position; ``active``
     (B,) bool, when given, leaves the other lanes' caches (KV rows, rings,
-    recurrent states and conv windows) unchanged."""
+    recurrent states and conv windows) unchanged. Under an active mesh,
+    the SPMD program (module docstring)."""
+    mesh = sharding.get_mesh()
+    if mesh is not None and not sharding.in_spmd():
+        def run(token, lanes, cache):
+            return decode_step(params, token, cfg, cache, **lanes)
+        return _spmd_serve(mesh, run, token, cache, cache_index=cache_index,
+                           active=active)
     logits, _, cache = forward(params, token, cfg, cache=cache,
                                cache_index=cache_index, active=active)
     return logits[:, -1, :], cache
@@ -519,8 +636,15 @@ def prefill_step(params, tokens, cfg: ArchConfig, cache, cache_index, length):
     ``cache_index`` (scalar or (B,)) is each lane's write offset; ``length``
     (B,) counts the valid leading tokens of this chunk per lane (the S axis
     may be right-padded to a bucket). A lane with ``length == 0`` keeps its
-    cache unchanged, recurrent states and conv windows included.
+    cache unchanged, recurrent states and conv windows included. Under an
+    active mesh, the SPMD program (module docstring).
     """
+    mesh = sharding.get_mesh()
+    if mesh is not None and not sharding.in_spmd():
+        def run(tokens, lanes, cache):
+            return prefill_step(params, tokens, cfg, cache, **lanes)
+        return _spmd_serve(mesh, run, tokens, cache, cache_index=cache_index,
+                           length=length)
     b, s = tokens.shape[0], tokens.shape[1]
     dev = tokens.device
     idx = _lanes(cache_index, b, dev)

@@ -14,7 +14,8 @@ The port keeps one tensor per layer where the reference stacks its
 super-blocks along a leading axis, so the spec of a layer's leaf here is
 the reference's spec of the stacked leaf without its leading None.
 
-The SPMD program (``spmd``). Under ``models.train_loss`` with a mesh
+The SPMD program (``spmd``). Under ``models.train_loss``,
+``prefill_step``, ``decode_step`` or the no-cache ``forward`` with a mesh
 active, each rank holds its data shard of the batch (rows over the
 batch axes, the same rows on every "model" rank) as plain tensors; the
 parameters may be DTensors placed by ``param_specs``, and every use
@@ -52,7 +53,9 @@ __all__ = [
     "set_mesh", "get_mesh", "use_mesh", "shard", "batch_axes",
     "axis_divides", "param_specs", "named_sharding_tree", "placements",
     "mesh_sizes", "spmd", "in_spmd", "data_shards", "data_index",
-    "gather_full", "gather_tree", "all_reduce_max", "all_reduce_sum",
+    "gather_full", "gather_tree", "gather_rows", "local_rows",
+    "all_reduce_max",
+    "all_reduce_sum",
     "chunk", "all_gather", "copy_to_model", "model_shards", "is_dtensor",
 ]
 
@@ -80,9 +83,15 @@ def use_mesh(mesh):
 
 
 def mesh_sizes(mesh) -> dict:
-    """{axis name: size} of a ``DeviceMesh`` (or of anything with
-    ``mesh_dim_names`` and ``shape``)."""
-    return dict(zip(mesh.mesh_dim_names, tuple(mesh.shape)))
+    """{axis name: size} of a ``DeviceMesh``, kept on the mesh after the
+    first call: the SPMD program asks on every CIM call, and a
+    ``DeviceMesh`` computes its shape anew each time. Read it, do not
+    change it."""
+    sizes = getattr(mesh, "_repro_sizes", None)
+    if sizes is None:
+        sizes = mesh._repro_sizes = dict(zip(mesh.mesh_dim_names,
+                                             tuple(mesh.shape)))
+    return sizes
 
 
 def batch_axes(mesh=None) -> Optional[Tuple[str, ...]]:
@@ -296,12 +305,15 @@ def is_dtensor(t) -> bool:
 def gather_full(t):
     """A DTensor parameter as its full local tensor (all-gathered); its
     gradient comes back summed over the batch axes and placed as the
-    parameter is (reduce-scattered). Plain tensors pass through."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
-
-    if not isinstance(t, DTensor):
+    parameter is (reduce-scattered). Plain tensors pass through. On a
+    mesh of one rank the local tensor is the full one, taken as it is."""
+    if not is_dtensor(t):
         return t
+    from torch.distributed.tensor import Partial, Replicate
+
     mesh = t.device_mesh
+    if mesh.size() == 1:
+        return t.to_local()
     ba = batch_axes(mesh) or ()
     full = t.redistribute(mesh, [Replicate()] * mesh.ndim)
     return full.to_local(grad_placements=[
@@ -406,6 +418,44 @@ def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x.contiguous(), group=group)
     return torch.cat(parts, dim=dim)
+
+
+def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Every data shard's rows of ``x`` concatenated along dim 0, in the
+    order of ``data_index`` (the innermost batch axis gathered first); no
+    gradient (the serving path's outputs)."""
+    mesh = mesh or _ACTIVE_MESH
+    sizes = mesh_sizes(mesh)
+    for a in reversed(batch_axes(mesh) or ()):
+        if sizes[a] > 1:
+            x = _gather(x, 0, mesh.get_group(a))
+    return x
+
+
+def local_rows(t, mesh=None):
+    """This rank's rows of a global batch tensor ``t`` for the SPMD
+    program: a DTensor redistributed to rows over the batch axes
+    (replicated over the others) and taken local, a plain tensor sliced
+    by ``data_index``. Non-tensors and 0-d tensors pass through; the rows
+    must divide over the batch axes."""
+    if not torch.is_tensor(t) or t.dim() == 0:
+        return t
+    mesh = mesh or _ACTIVE_MESH
+    if is_dtensor(t) and t.device_mesh.size() == 1:
+        return t.to_local()
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+
+        ba = batch_axes(mesh) or ()
+        return t.redistribute(t.device_mesh, [
+            Shard(0) if a in ba else Replicate()
+            for a in mesh.mesh_dim_names]).to_local()
+    nb = data_shards(mesh)
+    if nb == 1:
+        return t
+    b = t.shape[0] // nb
+    i = data_index(mesh)
+    return t[i * b:(i + 1) * b]
 
 
 def chunk(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -73,8 +73,9 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig) -> Callable:
         if nmb == 1:
             grads, metrics = grads_of(params, batch)
         else:
-            grads = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            # zeros_like: a DTensor parameter's sum keeps its placement
+            grads = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             metrics = None
             for i in range(nmb):
                 mb = {k: v.chunk(nmb, dim=0)[i] for k, v in batch.items()}

@@ -45,7 +45,13 @@ def test_forbidden_import_pattern():
 def test_importing_the_port_loads_no_jax():
     code = ("import sys; import repro_torch.serving, "
             "repro_torch.convert, repro_torch.kernels.grmac_matmul, "
-            "repro_torch.training, repro_torch.data; "
+            "repro_torch.training, repro_torch.data, "
+            "repro_torch.launch.dryrun, repro_torch.launch.perf, "
+            "repro_torch.launch.summary, repro_torch.examples.quickstart, "
+            "repro_torch.examples.design_explorer, "
+            "repro_torch.examples.site_pareto, "
+            "repro_torch.examples.serve_decode, "
+            "repro_torch.examples.train_lm; "
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.')); "
             "print(bad); sys.exit(1 if bad else 0)")
