@@ -165,6 +165,15 @@ seconds:
             of ``prefill_step`` / ``decode_step``: streams bitwise equal to
             ``serve``'s, 85 kernel launches a dispatch; ``serve``'s path
             with no mesh just before and after it, as its time's baseline;
+    spmd_split  the SPMD program split over "model" on the one card: two
+            processes, a gloo group with CUDA tensors (NCCL refuses two
+            ranks on one device), a 1 x 2 ("data", "model") mesh, paper-
+            cim-120m's params placed by ``param_specs``; ``serve``'s
+            traffic through the engine with the KV by rows only (streams
+            bitwise equal to ``serve``'s, 85 launches a dispatch a rank,
+            each at half the projection's N), and with its context split
+            over "model" (tokens differing, |logit differences|, finite);
+            the kernel against its plain version at the chunks;
     roofline_card  ``launch.roofline`` on a 1 x 1 mesh of the ``fake``
             group for the shapes this run measures (paper-cim-120m decode
             at 8 slots / ctx 512, the no-cache prefill forward at 8 x 64,
@@ -259,6 +268,9 @@ STEP_LAUNCHES = {"serve": 1011, "serve_gemma3": 3008, "serve_mamba2": 3383,
 # any difference is the card's summation order; bound per tensor, relative
 # to its largest entry.
 GRAD_RTOL = 1e-5
+# The sharded-vs-unsharded rtol of the reference (tests/test_dryrun.py):
+# spmd_split holds the split KV's decode to it with the CIM path off.
+LOSS_RTOL = 2e-4
 # The supervised drill of train_drill: make_fault_plan(0, 12) under the
 # default DrillConfig (4 hosts, 8 chips, local tier every 2 steps, durable
 # every 6). Its counters are pure functions of (plan, config); these are
@@ -803,6 +815,223 @@ def examples_phase(card: str, reset_counts) -> dict:
     if bad:
         fail(f"examples: GR-MAC launches differ: {bad}")
     return launches
+
+
+SPLIT_RANKS = 2      # spmd_split: ranks on the one card ("model" of 1 x 2)
+# spmd_split's runs of serve's traffic: (label, max_ctx, KV context split
+# over "model", CIM mode, decode steps). max_ctx 128 splits the context in
+# chunks of 64 slots, which the longer prompts' decode crosses; each split
+# run is compared with the rows-only run of its mode at the same max_ctx
+SPLIT_RUNS = (("kv_rows", 512, False, "grmac", 32),
+              ("kv_rows_128", 128, False, "grmac", 32),
+              ("kv_split", 128, True, "grmac", 32),
+              ("off_rows", 128, False, "off", 8),
+              ("off_split", 128, True, "off", 8))
+SPLIT_PAIRS = (("grmac", "kv_rows_128", "kv_split"),
+               ("off", "off_rows", "off_split"))
+SPLIT_CHECKS = (("wq", 8), ("wi", 8), ("head", 8), ("wq", 64), ("wi", 64),
+                ("head", 64))   # spmd_split's kernel-vs-plain calls (site, M)
+
+
+def spmd_split_worker(rank: int, world: int, store: str, out_dir: str,
+                      prompts: list, device: str, reduced: bool) -> None:
+    """One rank of ``spmd_split``: paper-cim-120m (``reduced``: its
+    reduced config, for a rehearsal on the CPU) on a 1 x ``world`` ("data",
+    "model") mesh of a gloo group on ``device``, its params placed by
+    ``param_specs``; ``serve``'s traffic through the engine in each of
+    ``SPLIT_RUNS`` (the KV by rows only or with its context split over
+    "model", GR-MAC or the CIM path off), the kernel's launches counted
+    from 0 for each run and the N of every launch kept; in each mode of
+    ``SPLIT_PAIRS``, the split run's tokens and decode logits against the
+    rows-only run's at the same max_ctx, the logits while their tokens
+    agree (the split's merge alone between them); the no-cache forward at
+    8 x 64 on the placed raw params (each projection packed per call from
+    its chunk, ``wo`` exchanged by an all-to-all) against the served
+    params'; the kernel against its plain version at this rank's chunks.
+    Writes ``rank<r>.json`` to ``out_dir``."""
+    import faulthandler
+
+    faulthandler.enable()
+    if str(ROOT / "src") not in sys.path:
+        sys.path.insert(0, str(ROOT / "src"))
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.grmac_matmul import (DESIGNS, INSTANTIATIONS,
+                                                  grmac_matmul_cuda)
+    from repro_torch.launch import specs
+    from repro_torch.models import forward, init_params
+    from repro_torch.parallel import sharding
+    from repro_torch.serving import Engine, ServeConfig
+    from repro_torch.tree import tree_map
+
+    dev = torch.device(device)
+    on_card = dev.type == "cuda"
+    if on_card:
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    launch_n = []
+    real_cuda = ops.grmac_matmul_cuda
+
+    def counted(x, w, *a, **k):
+        launch_n.append(w.n)
+        return real_cuda(x, w, *a, **k)
+
+    ops.grmac_matmul_cuda = counted
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    try:
+        mesh = DeviceMesh(dev.type, torch.arange(world).reshape(1, world),
+                          mesh_dim_names=("data", "model"))
+
+        def place(tree, spec_tree):
+            # every rank holds the same tree: each takes its shards
+            return tree_map(lambda t, sp: distribute_tensor(
+                t, mesh, sharding.placements(
+                    tuple(sp) + (None,) * (t.dim() - len(sp)), mesh),
+                src_data_rank=None), tree, spec_tree)
+
+        arch = get_config("paper-cim-120m")
+        arch = arch.reduced() if reduced else arch
+        params = init_params(arch, SEED, device=dev)
+        placed = place(params, sharding.param_specs(params, mesh))
+        out = {"rank": rank, "mesh": list(mesh.shape), "runs": {}}
+        logits = {}
+        for label, ctx, split_kv, mode, n_steps in SPLIT_RUNS:
+            run_arch = arch.replace(cim=arch.cim.with_mode(mode))
+            with sharding.use_mesh(mesh):
+                engine = Engine(run_arch, placed, ServeConfig(
+                    batch_slots=SLOTS, max_ctx=ctx), device=dev)
+                if split_kv:
+                    case = specs.ShapeCase("serve", ctx, SLOTS, "decode")
+                    engine.cache = place(engine.cache, specs.cache_spec_tree(
+                        run_arch, case, mesh, engine.cache))
+                steps = []
+                decode = engine._decode
+
+                def kept(*a, _decode=decode, _steps=steps, **k):
+                    got = _decode(*a, **k)
+                    _steps.append(got.float().cpu())
+                    return got
+
+                engine._decode = kept
+                sync()
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                grmac_matmul_cuda.launches = 0
+                grmac_matmul_cuda.launches_by_design = dict.fromkeys(
+                    DESIGNS, 0)
+                grmac_matmul_cuda.launches_by_instantiation = dict.fromkeys(
+                    INSTANTIATIONS, 0)
+                launch_n.clear()
+                t0 = time.perf_counter()
+                for prompt in prompts:
+                    engine.add_request(prompt)
+                sync()
+                prefill_s = time.perf_counter() - t0
+                step_ms = []
+                for _ in range(n_steps):
+                    t0 = time.perf_counter()
+                    engine.step()
+                    sync()
+                    step_ms.append(1e3 * (time.perf_counter() - t0))
+            out["runs"][label] = {
+                "max_ctx": ctx, "cim": mode,
+                "kv_leaves_split": sum(
+                    sharding.is_dtensor(t) and "Shard(dim=1)" in str(
+                        t.placements) for c in engine.cache["layers"]
+                    for t in c.values()),
+                "streams": [list(t) for t in engine.tokens],
+                "kernel_launches": grmac_matmul_cuda.launches,
+                "launches_by_design": dict(
+                    grmac_matmul_cuda.launches_by_design),
+                "launch_n": sorted(set(launch_n)),
+                "dispatches": (engine.stats["prefill_dispatches"]
+                               + engine.stats["decode_steps"]),
+                "prefill_s": prefill_s,
+                "decode_ms_median": float(np.median(step_ms)),
+                "peak_mem_bytes": (torch.cuda.max_memory_allocated()
+                                   if on_card else None)}
+            logits[label] = torch.stack(steps)
+            if label == "kv_rows":
+                served = engine.params
+            del engine
+        # each split KV's decode logits against the rows-only run's at the
+        # same max_ctx, over the steps before the first token that differs
+        # (decode step j feeds lane i its token len(prompt) + j): the
+        # split's merge alone between them
+        for mode, base_label, split_label in SPLIT_PAIRS:
+            rows, split = (out["runs"][k]["streams"]
+                           for k in (base_label, split_label))
+            agree = min(len(logits[base_label]), min(
+                next((i for i, (a, b) in enumerate(zip(r, t)) if a != b),
+                     len(r)) - len(p)
+                for r, t, p in zip(rows, split, prompts)))
+            base = logits[base_label]
+            d = (logits[split_label][:agree] - base[:agree]).abs()
+            scale = float(base.abs().max())
+            out[f"{mode}_tokens_differing"] = sum(
+                a != b for r, t in zip(rows, split) for a, b in zip(r, t))
+            out[f"{mode}_steps_compared"] = agree
+            out[f"{mode}_first_decode_max_abs_dlogit"] = (
+                float(d[0].max()) if agree > 0 else None)
+            out[f"{mode}_decode_max_abs_dlogit"] = (
+                float(d.max()) if agree > 0 else None)
+            for k in (f"{mode}_first_decode", f"{mode}_decode"):
+                v = out[f"{k}_max_abs_dlogit"]
+                out[f"{k}_rel_dlogit"] = None if v is None else v / scale
+        out["kv_split_finite"] = bool(all(
+            torch.isfinite(logits[k]).all() for k in ("kv_split",
+                                                      "off_split")))
+        # the no-cache forward: the placed raw params (per-call packing of
+        # each chunk) against the served params, under the mesh
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        toks = torch.randint(0, arch.vocab_size, (SLOTS, 64), device=dev,
+                             generator=gen)
+        with torch.no_grad(), sharding.use_mesh(mesh):
+            raw_logits = forward(placed, toks, arch)[0]
+            packed_logits = forward(served, toks, arch)[0]
+        out["forward_raw_equals_served"] = bool(
+            torch.equal(raw_logits, packed_logits))
+        out["forward_finite"] = bool(torch.isfinite(raw_logits).all())
+        # the kernel against its plain version at this rank's chunks
+        cfg = arch.cim.for_site("mlp")
+        layer, served_layer = params["layers"][0], served["layers"][0]
+        weights = {"wq": (layer["attn"]["wq"]["w"],
+                          served_layer["attn"]["wq"]["w"], "attn_qkv"),
+                   "wi": (layer["ffn"]["wi"]["w"],
+                          served_layer["ffn"]["wi"]["w"], "mlp"),
+                   "head": (params["lm_head"]["w"] if "lm_head" in params
+                            else params["embed"].T,
+                            served["lm_head"]["w"], "head")}
+        errs = {}
+        with torch.no_grad(), sharding.use_mesh(mesh), sharding.spmd():
+            for name, m in SPLIT_CHECKS:
+                raw, packed, site = weights[name]
+                x = torch.randn((m, raw.shape[0]), device=dev, generator=gen)
+                got = ops.cim_matmul(x, sharding.split_model(packed),
+                                     cfg, site=site)
+                want = ops.cim_matmul(x, sharding.split_model(raw), cfg,
+                                      site=site, backend="ref")
+                errs[f"{name}_m{m}"] = {
+                    "n": got.shape[-1],
+                    "max_abs_err": float((got - want).abs().max()),
+                    "bitwise": bool(torch.equal(got, want))}
+        out["kernel_vs_plain"] = errs
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+    finally:
+        ops.grmac_matmul_cuda = real_cuda
+        dist.destroy_process_group()
 
 
 def main() -> int:
@@ -2335,6 +2564,108 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
 
+    def spmd_split(arch, prompts):
+        """``serve``'s traffic through the SPMD program split over
+        "model": ``SPLIT_RANKS`` processes on the one card, a gloo group
+        (NCCL refuses two ranks on one device) with CUDA tensors, a 1 x 2
+        mesh, the params placed by ``param_specs`` (``spmd_split_worker``).
+        With the KV placed by rows only the streams must equal ``serve``'s
+        bitwise, with 85 kernel launches a dispatch on each rank, every
+        one at half the projection's N; with the KV's context split over
+        "model" (max_ctx 128) the tokens that differ from ``serve``'s and
+        from the rows-only run at max_ctx 128, and the first decode step's
+        largest |logit difference| from the latter, are printed and finite
+        logits are the check (in GR-MAC mode a last-ulp difference may
+        flip an input code); with the CIM path off, the split KV's decode
+        logits must lie within ``LOSS_RTOL`` (the reference's
+        sharded-vs-unsharded rtol) of the rows-only run's, the largest
+        |logit difference| printed. The kernel is held to its
+        plain version at the chunks, and the raw DTensor params' forward
+        to the served params'."""
+        import torch.multiprocessing as mp
+
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            mp.spawn(spmd_split_worker, args=(
+                SPLIT_RANKS, os.path.join(tmp, "store"), tmp, prompts,
+                "cuda", False), nprocs=SPLIT_RANKS, join=True)
+            ranks = []
+            for r in range(SPLIT_RANKS):
+                with open(os.path.join(tmp, f"rank{r}.json")) as f:
+                    ranks.append(json.load(f))
+        wall = time.perf_counter() - t0
+        fwd = per_forward(arch)
+        halves = sorted({n // SPLIT_RANKS for n in (
+            [arch.n_heads * arch.d_head, arch.n_kv_heads * arch.d_head,
+             arch.d_model, arch.d_ff, arch.padded_vocab])})
+        serve_streams = served_streams["serve"]
+        rows = ranks[0]["runs"]["kv_rows"]
+
+        def differ(label):
+            return sum(a != b for s1, s2 in zip(
+                ranks[0]["runs"][label]["streams"], serve_streams)
+                for a, b in zip(s1, s2))
+        grmac = [run for r in ranks for run in r["runs"].values()
+                 if run["cim"] == "grmac"]
+        launches = sum(run["kernel_launches"] for r in ranks
+                       for run in r["runs"].values())
+        launches_by_path["spmd_split"] = launches
+        for d in DESIGNS:
+            by_design_total[d] += sum(run["launches_by_design"][d]
+                                      for r in ranks
+                                      for run in r["runs"].values())
+        checks = {
+            "kv_rows_streams_equal_to_serve": rows["streams"] == serve_streams,
+            "ranks_agree": all(r["runs"][k]["streams"] == run["streams"]
+                               for r in ranks for k, run in
+                               ranks[0]["runs"].items()),
+            "launches_per_dispatch": all(
+                run["kernel_launches"] == (fwd * run["dispatches"]
+                                           if run["cim"] == "grmac" else 0)
+                for r in ranks for run in r["runs"].values()),
+            "launch_n_halved": all(run["launch_n"] == halves
+                                   for run in grmac),
+            "kv_split_over_model": all(
+                run["kv_leaves_split"] == (2 * arch.n_layers
+                                           if label.endswith("split") else 0)
+                for r in ranks for label, run in r["runs"].items()),
+            "kv_split_finite": all(r["kv_split_finite"]
+                                   and r["forward_finite"] for r in ranks),
+            "off_split_within_rtol": all(
+                r["off_steps_compared"] > 0
+                and r["off_decode_rel_dlogit"] <= LOSS_RTOL for r in ranks),
+            "forward_raw_equals_served": all(
+                r["forward_raw_equals_served"] for r in ranks),
+        }
+        err = max(e["max_abs_err"] for r in ranks
+                  for e in r["kernel_vs_plain"].values())
+        emit({"phase": "spmd_split", "arch": arch.name,
+              "ranks": SPLIT_RANKS, "mesh": ranks[0]["mesh"],
+              "backend": "gloo", "checks": checks,
+              "tokens": sum(len(t) for t in serve_streams),
+              "tokens_differing_from_serve": {
+                  label: differ(label) for label in (
+                      "kv_rows", "kv_rows_128", "kv_split")},
+              **{f"{mode}_{k}": ranks[0][f"{mode}_{k}"]
+                 for mode, _, _ in SPLIT_PAIRS for k in (
+                     "tokens_differing", "steps_compared",
+                     "first_decode_max_abs_dlogit",
+                     "first_decode_rel_dlogit", "decode_max_abs_dlogit",
+                     "decode_rel_dlogit")},
+              "per_rank": [{
+                  "rank": r["rank"], **{label: {k: run[k] for k in (
+                      "max_ctx", "cim", "kv_leaves_split",
+                      "kernel_launches", "dispatches", "launch_n",
+                      "decode_ms_median", "prefill_s", "peak_mem_bytes")}
+                      for label, run in r["runs"].items()},
+                  "kernel_vs_plain": r["kernel_vs_plain"]} for r in ranks],
+              "kernel_launches": launches, "max_abs_err": err,
+              "serve_decode_ms_median": step_median["serve"],
+              "wall_seconds": wall, "card": card})
+        if not all(checks.values()) or err != 0.0:
+            fail(f"spmd_split: {checks}, kernel against plain at the chunks "
+                 f"max abs err {err}")
+
     def prefill_forward_ms(arch, params):
         """Median ms of the no-cache forward at 8 x 64 on the served
         (packed) weights, the dry run's prefill cell at this run's shape."""
@@ -2612,6 +2943,8 @@ def main() -> int:
     seconds("analysis")
     spmd_serve(paper, params, prompts)
     seconds("spmd_serve")
+    spmd_split(paper, prompts)
+    seconds("spmd_split")
     roofline_card_phase(paper, card, {
         "decode": step_median["serve"],
         "prefill": prefill_forward_ms(paper, params),

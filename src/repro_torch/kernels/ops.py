@@ -8,10 +8,12 @@
 1. dynamic pre-scale: activations are normalized into [-1, 1] by their
    per-tensor absmax (one absmax over the whole flattened activation, so
    every row of a batch shapes every other row's numbers); weights likewise.
-   Under the SPMD program of ``parallel.sharding`` the weight arrives
-   whole and x as this rank's rows, and the absmax of x is the max over
-   every rank (``sharding.all_reduce_max``), so each output row sees the
-   same pre-scale, weight and K order as without a mesh;
+   Under the SPMD program of ``parallel.sharding`` x arrives as this rank's
+   rows (the same on every "model" rank) and the weight as this rank's
+   N-chunk (or whole, where N does not divide "model"), with K whole; the
+   absmax of x is the max over the batch axes and the weight's over
+   "model" (``sharding.all_reduce_max``), so each output element sees the
+   same pre-scales, weight column and K order as without a mesh;
 2. mode dispatch:
      off        exact matmul (digital baseline)
      fakequant  format-grid quantization of x and w, exact accumulation
@@ -21,10 +23,10 @@
    backward is digital.
 
 ``x`` and ``w`` may be DTensors: the weight is gathered to its full K x
-N, x redistributed so that K is whole on every rank (its rows stay where
-they are), and the op runs on the local tensors with the absmax of x
-taken over every rank; the output is a DTensor placed as x's rows
-(``_on_dtensors``). The kernel is never handed a DTensor.
+N, x redistributed so that K is whole on every rank and its rows lie
+over the batch axes only, and the op runs on the local tensors with the
+absmax of x taken over every rank; the output is a DTensor placed as x's
+rows (``_on_dtensors``). The kernel is never handed a DTensor.
 
 ``w`` may also be a ``PackedWeight`` (``kernels/packed.py``): the weight's
 pre-scale and quantization done once, for serving. Only ``grmac`` sites
@@ -93,6 +95,18 @@ def plain_on_meta():
         _PLAIN_ON_META.pop()
 
 
+def _over_batch(amax: torch.Tensor) -> torch.Tensor:
+    """x's absmax over every rank: its rows lie over the batch axes, and
+    every "model" rank holds the same rows whole (``parallel.sharding``)."""
+    return sharding.all_reduce_max(amax, axes=sharding.batch_axes() or ())
+
+
+def _over_model(amax: torch.Tensor) -> torch.Tensor:
+    """A weight's absmax over every rank: a rank may hold its N-chunk over
+    "model"; the batch axes hold it gathered."""
+    return sharding.all_reduce_max(amax, axes=("model",))
+
+
 def _plain_grmac(x: torch.Tensor, wq: torch.Tensor, backend: str, **kw):
     """The plain GR-MAC: through ``dispatch`` on real tensors; on ``meta``
     (the audit's regime only) the plain version directly, which
@@ -115,19 +129,19 @@ def _cim_matmul_2d(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
         _check_fp_input(cfg)
         on_card = x32.device.type == "cuda" and backend == "auto"
         if on_card or isinstance(w, PackedWeight):
-            pw = w if isinstance(w, PackedWeight) \
-                else pack_weight(w, cfg.fmt_w, cfg.n_r)
+            pw = w if isinstance(w, PackedWeight) else pack_weight(
+                w, cfg.fmt_w, cfg.n_r, reduce=_over_model)
             if on_card:
                 # max |x| in one reduction (the kernel clamps it to sx)
                 out = grmac_matmul_cuda(
                     x32.contiguous(), pw,
-                    sharding.all_reduce_max(
+                    _over_batch(
                         torch.linalg.vector_norm(x32, float("inf"))),
                     fmt_x=cfg.fmt_x, enob=cfg.resolved_enob(),
                     granularity=cfg.granularity, tag=tag)
                 return out.to(dtype)
             sx = torch.clamp(
-                sharding.all_reduce_max(torch.amax(torch.abs(x32))), min=_EPS)
+                _over_batch(torch.amax(torch.abs(x32))), min=_EPS)
             out = grmac_matmul(x32 / sx, unpack_weight(pw), fmt_x=cfg.fmt_x,
                                fmt_w=cfg.fmt_w, n_r=cfg.n_r,
                                enob=cfg.resolved_enob(),
@@ -135,9 +149,8 @@ def _cim_matmul_2d(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
                                tag=tag)
             return (out * (sx * pw.sw)).to(dtype)
     w32 = w.to(torch.float32)
-    sx = torch.clamp(sharding.all_reduce_max(torch.amax(torch.abs(x32))),
-                     min=_EPS)
-    sw = torch.clamp(torch.amax(torch.abs(w32)), min=_EPS)
+    sx = torch.clamp(_over_batch(torch.amax(torch.abs(x32))), min=_EPS)
+    sw = torch.clamp(_over_model(torch.amax(torch.abs(w32))), min=_EPS)
     xn = x32 / sx
     wn = w32 / sw
     if cfg.mode == "fakequant":
@@ -284,9 +297,11 @@ def _on_dtensors(x, w, cfg, **kw):
         return cim_matmul(x, sharding.gather_full(w), cfg, **kw)
     mesh = x.device_mesh
     last = x.ndim - 1
-    pl = [Replicate() if p.is_partial() or (isinstance(p, Shard)
-                                            and p.dim % x.ndim == last)
-          else p for p in x.placements]
+    # K whole, and the same rows on every "model" rank (the SPMD program's
+    # layout, whose x absmax reduces over the batch axes)
+    pl = [Replicate() if a == "model" or p.is_partial() or (
+        isinstance(p, Shard) and p.dim % x.ndim == last) else p
+        for a, p in zip(mesh.mesh_dim_names, x.placements)]
     x_l = x.redistribute(mesh, pl).to_local()
     if isinstance(w, DTensor):
         w = w.redistribute(mesh, [Replicate()] * mesh.ndim).to_local(

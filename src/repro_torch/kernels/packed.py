@@ -129,13 +129,17 @@ def pack_quantized(wq: torch.Tensor, sw: torch.Tensor, fmt_w: FPFormat,
                         lut, fmt_w, k, n, n_r)
 
 
-def pack_weight(w: torch.Tensor, fmt_w: FPFormat, n_r: int) -> PackedWeight:
+def pack_weight(w: torch.Tensor, fmt_w: FPFormat, n_r: int,
+                reduce=None) -> PackedWeight:
     """Prepare a (K, N) weight once: exactly the per-call path's pre-scale
     and quantization, then the codes. Any stride layout (a tied LM head's
-    ``embed.T``) gives contiguous codes."""
+    ``embed.T``) gives contiguous codes. ``reduce``, when given, maps the
+    absmax of ``w`` to the one ``sw`` is taken from (the max over every
+    rank, for a rank that holds an N-chunk of the weight)."""
     _check(fmt_w, n_r)
     w32 = w.to(torch.float32)
-    sw = torch.clamp(torch.amax(torch.abs(w32)), min=EPS)
+    amax = torch.amax(torch.abs(w32))
+    sw = torch.clamp(amax if reduce is None else reduce(amax), min=EPS)
     return pack_quantized(quantize(w32 / sw, fmt_w), sw, fmt_w, n_r)
 
 

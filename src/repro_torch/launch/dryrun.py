@@ -51,8 +51,9 @@ def fake_world(n: int):
     """A ``fake`` process group of ``n`` ranks (``FakeStore``; this
     process is rank 0) for the block, ended on exit. A group already up
     is used when it is a fake one of at least ``n`` ranks."""
-    # DTensor warns at every gather of a dimension split over two axes (a
-    # long_500k KV), which a dry run does by design
+    # DTensor warns wherever it reduces a partial sum over several mesh
+    # dimensions one after another (the multi-pod mesh's reductions),
+    # which a dry run does by design
     log = logging.getLogger("torch.distributed.tensor._redistribute")
     level = log.level
     log.setLevel(logging.ERROR)

@@ -127,19 +127,22 @@ def _experts(ex, buf: torch.Tensor, cfg: ArchConfig, m_in: str = "",
     (module docstring). ``m_in`` / ``m_out`` are the audit markers."""
     e, f = cfg.n_experts, cfg.expert_d_ff
     nm = sharding.model_shards()
-    ep = e % nm == 0
+    ep = nm > 1 and e % nm == 0
     tp = nm > 1 and not ep and f % nm == 0
-    buf = sharding.shard(buf, "model" if ep else None, "data", None)
-    if nm > 1 and ep:
+    if ep:
         buf = sharding.chunk(buf, 0)
     elif tp:
         buf = sharding.copy_to_model(buf)
 
     def weight(name, tp_dim):
-        w = ex[name].to(buf.dtype)
-        if nm > 1 and ep:
-            return sharding.chunk(w, 0)
-        return sharding.chunk(w, tp_dim) if tp else w
+        # this rank's experts (EP) or hidden slice (TP), gathered over the
+        # batch axes only; the whole tensor otherwise
+        w = ex[name]
+        if ep or tp:
+            w = sharding.split_model(w, 0 if ep else tp_dim)
+        else:
+            w = sharding.gather_full(w)
+        return w.to(buf.dtype)
 
     with named_scope(m_in), named_scope("cim_values"):
         h = torch.bmm(buf, weight("wi", 2))
@@ -149,15 +152,13 @@ def _experts(ex, buf: torch.Tensor, cfg: ArchConfig, m_in: str = "",
         h = L.silu(hg) * h
     else:
         h = F.gelu(h, approximate="tanh")
-    h = (sharding.shard(h, "model", "data", None) if ep
-         else sharding.shard(h, None, "data", "model"))
     with named_scope(m_out), named_scope("cim_values"):
         out_buf = torch.bmm(h, weight("wo", 1))
-    if nm > 1 and ep:
-        out_buf = sharding.all_gather(out_buf, 0)
-    elif tp:
-        out_buf = sharding.all_reduce_sum(out_buf, axes=("model",))
-    return sharding.shard(out_buf, "model" if ep else None, "data", None)
+    if ep:
+        return sharding.all_gather(out_buf, 0)
+    if tp:
+        return sharding.all_reduce_sum(out_buf, axes=("model",))
+    return out_buf
 
 
 def moe(p, x: torch.Tensor, cfg: ArchConfig,

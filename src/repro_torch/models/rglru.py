@@ -13,7 +13,11 @@ token-by-token path. The three input projections and the output
 projection are CIM sites ("rglru"), each with its own pre-scale. The
 train path (``rglru_train``, no cache) runs the recurrence as an
 associative scan over time, in the order ``jax.lax.associative_scan``
-combines (``associative_scan``).
+combines (``associative_scan``). Inside the SPMD program of
+``parallel.sharding`` a width that divides "model" is split over it: the
+input projections give this rank's channels, the conv, the gates and the
+recurrence run on them (each acts per channel), the state is this rank's
+chunk, and h is gathered before the output projection.
 """
 from __future__ import annotations
 
@@ -23,8 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.layers import dense
-from repro_torch.parallel.sharding import shard
+from repro_torch.models.layers import dense_gathered, dense_many
+from repro_torch.parallel import sharding
 
 __all__ = ["rglru_train", "rglru_decode", "rglru_prefill",
            "init_rglru_state", "init_lam", "softplus", "causal_conv",
@@ -104,14 +108,28 @@ def associative_scan(fn, elems: tuple) -> tuple:
     return tuple(_interleave(e, o) for e, o in zip(even, odd))
 
 
+def _channels(t, cfg: ArchConfig):
+    """A per-channel parameter (the conv kernel, Λ; channels last) as the
+    channels this rank runs: its chunk where the width splits."""
+    if sharding.splits(cfg.rnn_width):
+        return sharding.split_model(t, -1)
+    return sharding.gather_full(t)
+
+
 def _branches(p, u, cfg: ArchConfig):
-    x = dense(p["in_proj"], u, cfg.cim, "rglru")
-    r = torch.sigmoid(dense(p["gate_r"], u, cfg.cim, "rglru")
-                      .to(torch.float32))
-    i = torch.sigmoid(dense(p["gate_i"], u, cfg.cim, "rglru")
-                      .to(torch.float32))
-    log_a = -_C * softplus(p["lam"])[None, None, :] * r          # (B,S,W) <= 0
+    x, r, i = dense_many(u, cfg.cim, "rglru", p["in_proj"], p["gate_r"],
+                         p["gate_i"], gather=False)
+    r = torch.sigmoid(r.to(torch.float32))
+    i = torch.sigmoid(i.to(torch.float32))
+    lam = _channels(p["lam"], cfg)
+    log_a = -_C * softplus(lam)[None, None, :] * r               # (B,S,W) <= 0
     return x, i, log_a
+
+
+def _out(p, h, u, cfg: ArchConfig):
+    """The output projection of h (B, S, W, or this rank's channels)."""
+    return dense_gathered(p["out_proj"], h.to(u.dtype), cfg.rnn_width,
+                          cfg.cim, "rglru")
 
 
 def rglru_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
@@ -119,7 +137,7 @@ def rglru_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     the recurrence h_t = a_t h_{t-1} + b_t as an associative scan over
     the pairs (a, b) from a zero state."""
     x, i, log_a = _branches(p, u, cfg)
-    x = causal_conv(x, p["conv"].to(x.dtype))
+    x = causal_conv(x, _channels(p["conv"], cfg).to(x.dtype))
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (
         i * x.to(torch.float32))
@@ -129,8 +147,7 @@ def rglru_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         return a1 * a2, a2 * b1 + b2
 
     _, h = associative_scan(combine, (a, gated))
-    h = shard(h.to(u.dtype), "data", None, "model")
-    return dense(p["out_proj"], h, cfg.cim, "rglru")
+    return _out(p, h, u, cfg)
 
 
 def _recurrence_step(kernel, h, win, x_t, i_t, log_a_t):
@@ -149,12 +166,10 @@ def rglru_decode(p, u: torch.Tensor, cfg: ArchConfig,
     if u.shape[1] != 1:
         raise ValueError(f"decode takes one token per lane, got S={u.shape[1]}")
     x, i, log_a = _branches(p, u, cfg)
-    kernel = p["conv"].to(torch.float32)
+    kernel = _channels(p["conv"], cfg).to(torch.float32)
     h_new, win_new = _recurrence_step(kernel, state["h"], state["conv"],
                                       x[:, 0], i[:, 0], log_a[:, 0])
-    out = dense(p["out_proj"], h_new[:, None, :].to(u.dtype), cfg.cim,
-                "rglru")
-    return out, {"h": h_new, "conv": win_new}
+    return _out(p, h_new[:, None, :], u, cfg), {"h": h_new, "conv": win_new}
 
 
 def rglru_prefill(p, u: torch.Tensor, cfg: ArchConfig, state: dict,
@@ -168,7 +183,7 @@ def rglru_prefill(p, u: torch.Tensor, cfg: ArchConfig, state: dict,
     """
     s = u.shape[1]
     x, i, log_a = _branches(p, u, cfg)
-    kernel = p["conv"].to(torch.float32)
+    kernel = _channels(p["conv"], cfg).to(torch.float32)
     valid = torch.arange(s, device=u.device)[None, :] < length[:, None]
     h, win = state["h"], state["conv"]
     hs = []
@@ -179,6 +194,4 @@ def rglru_prefill(p, u: torch.Tensor, cfg: ArchConfig, state: dict,
         h = torch.where(v_t[:, None], h_new, h)
         win = torch.where(v_t[:, None, None], win_new, win)
         hs.append(h)
-    h_seq = torch.stack(hs, dim=1).to(u.dtype)                   # (B, S, W)
-    out = dense(p["out_proj"], h_seq, cfg.cim, "rglru")
-    return out, {"h": h, "conv": win}
+    return _out(p, torch.stack(hs, dim=1), u, cfg), {"h": h, "conv": win}

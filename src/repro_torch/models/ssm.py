@@ -14,7 +14,11 @@ algorithm (arXiv:2405.21060 §6): within a chunk of ``ssm_chunk`` steps the
 dual quadratic (attention-like) form, across chunks a scan over the chunk
 states. Its f32 sums run in another order than the recurrence's. The
 SSD contractions are digital by design and run under the ``dig_ssm_ssd``
-scope (``core.scopes``; the audit's declaration).
+scope (``core.scopes``; the audit's declaration). Inside the SPMD program
+of ``parallel.sharding`` heads that divide "model" are split over it:
+``in_proj`` gives this rank's columns of z and of x, ``dt_proj`` its
+heads' dt, B and C are gathered whole, the conv, the SSD and the state
+run on this rank's heads, and y is gathered before the gated norm.
 """
 from __future__ import annotations
 
@@ -24,9 +28,10 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scopes import named_scope
-from repro_torch.models.layers import dense, rmsnorm, silu
+from repro_torch.models.layers import (dense, dense_many, rmsnorm, silu,
+                                      whole)
 from repro_torch.models.rglru import causal_conv, causal_conv_step, softplus
-from repro_torch.parallel.sharding import shard
+from repro_torch.parallel import sharding
 
 __all__ = ["ssm_train", "ssm_decode", "ssm_prefill", "init_ssm_state"]
 
@@ -42,15 +47,33 @@ def init_ssm_state(cfg: ArchConfig, batch: int,
                                 dtype=torch.float32, device=device)}
 
 
+def _heads(t, cfg: ArchConfig):
+    """A per-head parameter (``A_log``, ``D``, ``dt_bias``; the conv kernel
+    over the channels, channels last) as this rank's heads: its chunk
+    where the heads split over "model"."""
+    if sharding.splits(cfg.ssm_heads):
+        return sharding.split_model(t, -1)
+    return sharding.gather_full(t)
+
+
 def _project(p, u, cfg: ArchConfig):
-    """The projection head. u: (B, S, D) -> z, x, B, C, dt."""
-    di, n = cfg.d_inner, cfg.ssm_state
-    zx = dense(p["in_proj"], u, cfg.cim, "ssm")
+    """The projection head. u: (B, S, D) -> z, x (this rank's heads'
+    channels), B, C (whole) and dt (this rank's heads)."""
+    n = cfg.ssm_state
+    split = sharding.splits(cfg.ssm_heads)
+    zx, bc, dt = dense_many(
+        u, cfg.cim, "ssm",
+        (p["in_proj"], dict(gather=False, split=split,
+                            groups=2 if split else 1)),
+        p["bc_proj"], (p["dt_proj"], dict(gather=False)))
+    di = zx.shape[-1] // 2
     z, x = zx[..., :di], zx[..., di:]
-    bc = dense(p["bc_proj"], u, cfg.cim, "ssm").to(torch.float32)
+    bc = bc.to(torch.float32)
+    if split:
+        # every head reads B and C: their gradient sums over the heads' ranks
+        bc = sharding.copy_to_model(bc)
     bmat, cmat = bc[..., :n], bc[..., n:]                        # (B,S,N) each
-    dt = dense(p["dt_proj"], u, cfg.cim, "ssm").to(torch.float32)
-    dt = softplus(dt + p["dt_bias"][None, None, :])              # (B,S,NH)
+    dt = softplus(dt.to(torch.float32) + _heads(p["dt_bias"], cfg)[None, None, :])  # (B,S,NH)
     return z, x, bmat, cmat, dt
 
 
@@ -59,18 +82,16 @@ def ssm_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     -> (B, S, D); S must be a multiple of ``ssm_chunk``. The SSD
     contractions are digital (data-dependent, never on a CIM array)."""
     b, s = u.shape[:2]
-    di, n, nh, hd, ck = (cfg.d_inner, cfg.ssm_state, cfg.ssm_heads,
-                         cfg.ssm_headdim, cfg.ssm_chunk)
+    n, hd, ck = cfg.ssm_state, cfg.ssm_headdim, cfg.ssm_chunk
     if s % ck:
         raise ValueError(f"seq {s} must be a multiple of ssm_chunk {ck}")
     nc = s // ck
     z, x, bmat, cmat, dt = _project(p, u, cfg)
-    x = silu(causal_conv(x, p["conv"].to(x.dtype)))
+    # SSD is parallel over heads: this rank's heads (all without a split)
+    nh, di = dt.shape[-1], x.shape[-1]
+    x = silu(causal_conv(x, _heads(p["conv"], cfg).to(x.dtype)))
     xh = x.reshape(b, s, nh, hd).to(torch.float32)
-    # SSD is parallel over heads: NH over "model", batch over data
-    xh = shard(xh, "data", None, "model", None)
-    dt = shard(dt, "data", None, "model")
-    log_a = -dt * torch.exp(p["A_log"])[None, None, :]           # (B,S,NH) <= 0
+    log_a = -dt * torch.exp(_heads(p["A_log"], cfg))[None, None, :]  # <= 0
     xc = xh.reshape(b, nc, ck, nh, hd)
     bc_ = bmat.reshape(b, nc, ck, n)
     cc_ = cmat.reshape(b, nc, ck, n)
@@ -82,7 +103,6 @@ def ssm_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
     ii = torch.arange(ck, device=u.device)
     causal = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
     decay = torch.exp(torch.where(causal, diff, float("-inf")))
-    decay = shard(decay, "data", None, None, None, "model")
     with named_scope("dig_ssm_ssd"):
         cb = torch.einsum("bgin,bgjn->bgij", cc_, bc_)
     att = cb[..., None] * decay * dtc[:, :, None, :, :]          # (B,NC,i,j,NH)
@@ -99,24 +119,22 @@ def ssm_train(p, u: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
         before.append(h)                     # the state before chunk g
         h = chunk_decay[:, g, :, None, None] * h + chunk_state[:, g]
     h_before = torch.stack(before, dim=1)                        # (B,NC,NH,N,P)
-    h_before = shard(h_before, "data", None, "model", None, None)
     decay_in = torch.exp(cum)
     with named_scope("dig_ssm_ssd"):
         y_inter = torch.einsum("bgin,bgih,bghnp->bgihp", cc_, decay_in,
                                h_before)
     y = (y_intra + y_inter).reshape(b, s, nh, hd)
-    y = y + p["D"][None, None, :, None] * xh
+    y = y + _heads(p["D"], cfg)[None, None, :, None] * xh
     return _out(p, y.reshape(b, s, di), z, u, cfg)
 
 
-def _recurrence_step(p, cfg: ArchConfig, kernel, a_rate, h, win, x_t, b_t,
+def _recurrence_step(d_skip, hd: int, kernel, a_rate, h, win, x_t, b_t,
                      c_t, dt_t):
     """One SSD time step from (h, conv window), shared by decode and
-    prefill so that the two cannot drift. x_t (B, di), b_t / c_t (B, N),
-    dt_t (B, NH). Returns (h_new, win_new, y) with y (B, NH, P) before the
-    gate and the norm."""
-    b = x_t.shape[0]
-    nh, hd = cfg.ssm_heads, cfg.ssm_headdim
+    prefill so that the two cannot drift. x_t (B, NH * P), b_t / c_t (B,
+    N), dt_t (B, NH), ``d_skip`` (NH,) the heads' D. Returns (h_new,
+    win_new, y) with y (B, NH, P) before the gate and the norm."""
+    b, nh = x_t.shape[0], dt_t.shape[-1]
     xc, win_new = causal_conv_step(kernel, win, x_t)
     xh = silu(xc).reshape(b, nh, hd).to(torch.float32)
     a = torch.exp(-dt_t * a_rate)                                # (B, NH)
@@ -124,15 +142,23 @@ def _recurrence_step(p, cfg: ArchConfig, kernel, a_rate, h, win, x_t, b_t,
     h_new = a[..., None, None] * h + dbx
     with named_scope("dig_ssm_ssd"):
         y = torch.einsum("bn,bhnp->bhp", c_t, h_new)
-    y = y + p["D"][None, :, None] * xh
+    y = y + d_skip[None, :, None] * xh
     return h_new, win_new, y
 
 
 def _out(p, y, z, u, cfg: ArchConfig):
-    """The gated RMSNorm and the output projection. y: (B, S, d_inner)."""
-    y = rmsnorm(p["out_norm"], y.to(u.dtype) * silu(z))
-    y = shard(y, "data", None, "model")
-    return dense(p["out_proj"], y, cfg.cim, "ssm")
+    """The gated RMSNorm (over the whole width: this rank's channels are
+    gathered) and the output projection. y: (B, S, d_inner or this rank's
+    channels)."""
+    y = whole(y.to(u.dtype) * silu(z), cfg.d_inner)
+    return dense(p["out_proj"], rmsnorm(p["out_norm"], y), cfg.cim, "ssm")
+
+
+def _step_params(p, cfg: ArchConfig):
+    """The recurrence's per-head parameters: (D, conv kernel, decay rate)
+    of this rank's heads."""
+    return (_heads(p["D"], cfg), _heads(p["conv"], cfg).to(torch.float32),
+            torch.exp(_heads(p["A_log"], cfg))[None, :])
 
 
 def ssm_decode(p, u: torch.Tensor, cfg: ArchConfig,
@@ -142,12 +168,11 @@ def ssm_decode(p, u: torch.Tensor, cfg: ArchConfig,
     if s != 1:
         raise ValueError(f"decode takes one token per lane, got S={s}")
     z, x, bmat, cmat, dt = _project(p, u, cfg)
-    kernel = p["conv"].to(torch.float32)
-    a_rate = torch.exp(p["A_log"])[None, :]
+    d_skip, kernel, a_rate = _step_params(p, cfg)
     h_new, win_new, y = _recurrence_step(
-        p, cfg, kernel, a_rate, state["h"], state["conv"], x[:, 0],
-        bmat[:, 0], cmat[:, 0], dt[:, 0])
-    out = _out(p, y.reshape(b, 1, cfg.d_inner), z, u, cfg)
+        d_skip, cfg.ssm_headdim, kernel, a_rate, state["h"], state["conv"],
+        x[:, 0], bmat[:, 0], cmat[:, 0], dt[:, 0])
+    out = _out(p, y.reshape(b, 1, -1), z, u, cfg)
     return out, {"h": h_new, "conv": win_new}
 
 
@@ -162,18 +187,17 @@ def ssm_prefill(p, u: torch.Tensor, cfg: ArchConfig, state: dict,
     """
     b, s = u.shape[:2]
     z, x, bmat, cmat, dt = _project(p, u, cfg)
-    kernel = p["conv"].to(torch.float32)
-    a_rate = torch.exp(p["A_log"])[None, :]
+    d_skip, kernel, a_rate = _step_params(p, cfg)
     valid = torch.arange(s, device=u.device)[None, :] < length[:, None]
     h, win = state["h"], state["conv"]
     ys = []
     for t in range(s):
         h_new, win_new, y = _recurrence_step(
-            p, cfg, kernel, a_rate, h, win, x[:, t], bmat[:, t], cmat[:, t],
-            dt[:, t])
+            d_skip, cfg.ssm_headdim, kernel, a_rate, h, win, x[:, t],
+            bmat[:, t], cmat[:, t], dt[:, t])
         v_t = valid[:, t]
         h = torch.where(v_t[:, None, None, None], h_new, h)
         win = torch.where(v_t[:, None, None], win_new, win)
         ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, s, cfg.d_inner)
+    y = torch.stack(ys, dim=1).reshape(b, s, -1)
     return _out(p, y, z, u, cfg), {"h": h, "conv": win}

@@ -28,18 +28,24 @@ Under an active mesh (``parallel.sharding.use_mesh``) ``train_loss``,
 ``prefill_step``, ``decode_step`` and the no-cache ``forward`` run the
 SPMD program of ``parallel.sharding``: each rank takes its rows of the
 batch (a DTensor's local rows, or its slice of a plain global batch) and
-runs them inside ``sharding.spmd()``; the loss is the mean over every
-rank's rows. A DTensor parameter is gathered to its full size where it is
-used: each layer's (each super-block's under remat, inside the
-checkpointed function, so the backward gathers again and saves only the
-DTensor), the embedding, the final norm and the head, so a rank never
-holds the whole model at once. A cache is a tree of DTensors placed as
+runs them inside ``sharding.spmd()``, with the work split over "model":
+every CIM projection column-parallel (``layers.dense``), the embedding
+looked up in this rank's vocabulary rows (the others masked, summed over
+"model"), the residual stream split over D between remat's super-blocks,
+the logits split over the vocabulary. The loss is computed on that split
+(``_nll``: each vocabulary block's log-sum-exp, gathered); decode gathers
+its (B, V) logits; prefill's greedy ids come from a split argmax. A
+parameter is taken where it is used (its "model" chunk, or gathered
+whole): inside the checkpointed function under remat, so the backward
+takes it again and saves only the DTensor, and a rank never holds the
+whole model at once. A cache is a tree of DTensors placed as
 ``launch.specs.cache_spec_tree`` says (rows over the batch axes; a global
 KV's sequence, SSM heads, RG-LRU width and conv channels over "model",
-or over every axis for one row): each layer gathers its own leaves'
-split dimensions, runs on the full tensors, and writes its chunk back in
-place. On a 1 x 1 mesh the program runs the operations of the unmeshed
-path.
+or over every axis for one row): each layer runs on its leaves' chunks
+where its work is split the same way (the recurrent states; in decode a
+global KV's context, attended chunk by chunk), gathers their other split
+dimensions, and writes its chunk back in place. On a 1 x 1 mesh the
+program runs the operations of the unmeshed path.
 """
 from __future__ import annotations
 
@@ -53,7 +59,6 @@ import torch.utils.checkpoint as ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.formats import IntFormat
-from repro_torch.kernels.ops import cim_matmul
 from repro_torch.kernels.packed import pack_weight
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe
@@ -74,6 +79,7 @@ __all__ = [
     "train_loss",
     "decode_step",
     "prefill_step",
+    "split_argmax",
 ]
 
 
@@ -223,7 +229,9 @@ def pack_params(params: dict, cfg: ArchConfig) -> dict:
     first would change its scale and every code). A tied head gets its
     own packed ``embed.T`` as ``"lm_head"``; the embedding table stays
     for the lookup. The input is not changed; untouched tensors are
-    shared."""
+    shared. A DTensor weight (params placed by ``param_specs``) is
+    gathered whole and packed on every rank; under a mesh each rank then
+    serves its "model" chunk of it (``sharding.split_model``)."""
     dt = _dtype(cfg)
 
     def pack(w, site):
@@ -231,6 +239,7 @@ def pack_params(params: dict, cfg: ArchConfig) -> dict:
         if (eff.mode != "grmac" or isinstance(eff.fmt_x, IntFormat)
                 or eff.fmt_w.bits > 8):
             return w
+        w = sharding.gather_full(w)
         return pack_weight(w.to(torch.float32 if site in _F32_SITES else dt),
                            eff.fmt_w, eff.n_r)
 
@@ -308,7 +317,7 @@ def _recurrent(kind, p, h, cfg, cache, chunk_lengths, active):
 
 
 def _apply_layer(kind, p, x, cfg, positions, cache, cache_index,
-                 chunk_lengths, active):
+                 chunk_lengths, active, kv_split=False):
     """Pre-norm residual block of ``kind`` + dense or MoE FFN (none after
     "ssm"); returns (x, the MoE's aux loss or None). In a chunked prefill
     the MoE routes only each lane's valid steps; in decode every lane
@@ -319,7 +328,7 @@ def _apply_layer(kind, p, x, cfg, positions, cache, cache_index,
         out, _ = L.attention(
             p["attn"], h, cfg, local=(kind == "local"), positions=positions,
             cache=cache, cache_index=cache_index,
-            chunk_lengths=chunk_lengths, active=active)
+            chunk_lengths=chunk_lengths, active=active, kv_split=kv_split)
     else:
         out = _recurrent(kind, p[kind], h, cfg, cache, chunk_lengths, active)
     x = x + out
@@ -365,17 +374,23 @@ def forward(
     _check_blocks(cfg)
     mesh = sharding.get_mesh()
     if mesh is not None and not sharding.in_spmd():
+        as_dtensor = sharding.is_dtensor(inputs)
+
         def run(inputs, lanes, cache):
-            return forward(params, inputs, cfg, cache=cache, **lanes)
-        logits, aux, cache = _spmd_serve(
-            mesh, run, inputs, cache, cache_index=cache_index,
-            positions=positions, chunk_lengths=chunk_lengths, active=active)
-        return logits, aux, cache
-    # a DTensor parameter is gathered where it is used; plain ones as is
-    gather = (sharding.gather_tree if mesh is not None and any(
-        sharding.is_dtensor(t) for _, t in tree_paths(params)) else _same)
+            logits, aux, cache = forward(params, inputs, cfg, cache=cache,
+                                         **lanes)
+            # DTensor inputs get their logits back split as they are
+            return (logits if as_dtensor else _whole_vocab(logits, cfg),
+                    aux, cache)
+        vocab = sharding.mesh_sizes(mesh).get("model", 1)
+        split = {0: 2} if as_dtensor and vocab > 1 and \
+            cfg.padded_vocab % vocab == 0 else {}
+        return _spmd_serve(
+            mesh, run, inputs, cache, model_dims=split,
+            cache_index=cache_index, positions=positions,
+            chunk_lengths=chunk_lengths, active=active)
     if cfg.input_mode == "tokens":
-        x = sharding.gather_full(params["embed"])[inputs].to(_dtype(cfg))
+        x = _embed(params["embed"], inputs).to(_dtype(cfg))
     else:
         x = inputs.to(_dtype(cfg))
     x = sharding.shard(x, "data", None, None)
@@ -392,95 +407,174 @@ def forward(
         # the reference checkpoints its scanned super-blocks, not the tail
         period = cfg.pattern_period()
         n_full = cfg.n_layers // period * period
-        block = _superblock_fn(cfg, gather)
+        block = _superblock_fn(cfg)
         for i in range(0, n_full, period):
             x, aux = _checkpoint(cfg, block, x, positions,
                                  params["layers"][i:i + period])
+            # remat saves 1/"model" of the residual between super-blocks
             x = sharding.shard(x, "data", None, "model")
             aux_total = aux_total + aux
+        x = L.whole(x, cfg.d_model)
         layers = range(n_full, cfg.n_layers)
     else:
         layers = range(cfg.n_layers)
     kinds = cfg.blocks()
     for i in layers:
-        c = cache["layers"][i] if cache is not None else None
-        c, put_back = _layer_cache(c) if mesh is not None else (c, None)
-        x, aux = _apply_layer(kinds[i], gather(params["layers"][i]), x, cfg,
+        c, put_back, kv_split = _layer_cache(
+            cache["layers"][i] if cache is not None else None, kinds[i],
+            cfg, decode=chunk_lengths is None)
+        x, aux = _apply_layer(kinds[i], params["layers"][i], x, cfg,
                               positions, c, cache_index, chunk_lengths,
-                              active)
+                              active, kv_split)
         if put_back is not None:
             put_back(c)
         if aux is not None:
             aux_total = aux_total + aux
-    x = L.rmsnorm(gather(params["final_norm"]), x)
+    x = L.rmsnorm(params["final_norm"], x)
     # the LM head is a CIM site in both tied and untied form (served params
-    # carry a tied head's packed embed.T as "lm_head")
-    if "lm_head" in params:
-        logits = L.dense(gather(params["lm_head"]), x, cfg.cim, "head",
-                         logical_n=cfg.vocab_size)
-    else:
-        logits = cim_matmul(
-            x, sharding.gather_full(params["embed"]).T.to(x.dtype), cfg.cim,
-            site="head", logical_n=cfg.vocab_size)
-    logits = sharding.shard(logits, "data", None, "model")
+    # carry a tied head's packed embed.T as "lm_head"); its logits stay
+    # split over the vocabulary where it divides "model"
+    head = (params["lm_head"] if "lm_head" in params
+            else {"w": params["embed"].T})
+    logits = L.dense(head, x, cfg.cim, "head", logical_n=cfg.vocab_size,
+                     gather=False)
     if cfg.padded_vocab != cfg.vocab_size:
-        pad = torch.arange(logits.shape[-1], device=dev) >= cfg.vocab_size
-        logits = torch.where(pad, torch.tensor(-1e30, dtype=logits.dtype,
-                                               device=dev), logits)
+        cols = torch.arange(logits.shape[-1], device=dev)
+        off = _vocab_offset(logits, cfg)
+        if off:
+            cols = cols + off
+        logits = torch.where(cols >= cfg.vocab_size,
+                             torch.tensor(-1e30, dtype=logits.dtype,
+                                          device=dev), logits)
     return logits, aux_total, cache
 
 
-def _same(tree):
-    return tree
+def _vocab_offset(logits: torch.Tensor, cfg: ArchConfig) -> int:
+    """The first vocabulary column of this rank's logits (0 unless split)."""
+    return (sharding.model_rank() * logits.shape[-1]
+            if logits.shape[-1] != cfg.padded_vocab else 0)
 
 
-def _layer_cache(c: Optional[dict]):
-    """One layer's cache as the layer runs on it inside the SPMD program:
-    a DTensor leaf as its local rows with every other split dimension
-    gathered (a global KV's sequence, SSM heads, RG-LRU width, conv
-    channels; a dimension split over a mesh dimension of one rank is
-    whole already). Returns (the local cache, ``put_back``),
-    ``put_back(c)`` writing each leaf's own chunk of the layer's result
-    into the DTensor in place; (c, None) for a plain cache."""
-    if c is None or not any(sharding.is_dtensor(t) for t in c.values()):
-        return c, None
-    from torch.distributed.tensor import DTensor, Replicate
+def _whole_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """Logits split over the vocabulary gathered over "model"."""
+    return L.whole(logits, cfg.padded_vocab)
 
-    local, views, full = {}, {}, {}
+
+def _embed(table, ids: torch.Tensor) -> torch.Tensor:
+    """The embedding lookup. Inside the SPMD program with the vocabulary
+    split over "model", each rank looks ids up in its own rows, the others
+    masked to zero, and the lookups are summed over "model": one rank adds
+    a nonzero row, so the sum is exact."""
+    v = table.shape[0]
+    if not sharding.splits(v):
+        return sharding.gather_full(table)[ids]
+    rows = sharding.split_model(table, 0)
+    c = rows.shape[0]
+    local = ids - sharding.model_rank() * c
+    mine = (local >= 0) & (local < c)
+    x = torch.where(mine[..., None], rows[local.clamp(0, c - 1)],
+                    torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return sharding.all_reduce_sum(x, axes=("model",))
+
+
+def _cache_splits(c: dict, kind: str, cfg: ArchConfig, decode: bool) -> dict:
+    """{leaf: dimension} of a layer's cache that its work splits over
+    "model" inside the SPMD program: RG-LRU's width and SSM heads (the
+    state and the conv window's channels), and in decode a global KV's
+    context where the cache splits it over "model" already."""
+    if kind == "rglru" and sharding.splits(cfg.rnn_width):
+        return {"h": 1, "conv": 2}
+    if kind == "ssm" and sharding.splits(cfg.ssm_heads):
+        return {"h": 1, "conv": 2}
+    if kind == "attn" and decode and sharding.is_dtensor(c["k"]):
+        from torch.distributed.tensor import Shard
+
+        k = c["k"]
+        at = k.device_mesh.mesh_dim_names.index("model")
+        if k.placements[at] == Shard(1) and sharding.model_shards() > 1:
+            return {"k": 1, "v": 1}
+    return {}
+
+
+def _layer_cache(c: Optional[dict], kind: str, cfg: ArchConfig,
+                 decode: bool):
+    """One layer's cache as the layer runs on it inside the SPMD program.
+    A DTensor leaf becomes its local rows: every other dimension that the
+    mesh splits is gathered by plain all-gathers, the innermost mesh
+    dimension first (``_leaf_gathers``), and its dimension in
+    ``_cache_splits`` is then cut to this rank's "model" chunk, unless
+    "model" alone splits it already; a plain leaf is whole, or cut to
+    that chunk. Returns (the local cache, ``put_back``, whether a KV's
+    context is split): ``put_back(c)`` writes each leaf's part of the
+    layer's result back in place (the chunk gathered over "model", then
+    this rank's shards cut out, the outermost mesh dimension first);
+    (c, None, False) when nothing is split and no leaf is a DTensor."""
+    if c is None:
+        return c, None, False
+    splits = _cache_splits(c, kind, cfg, decode)
+    if not splits and not any(sharding.is_dtensor(t) for t in c.values()):
+        return c, None, False
+    local, views, gathers, cut = {}, {}, {}, set()
     for name, t in c.items():
-        views[name] = t.to_local()
-        sizes = t.device_mesh.shape
-        rows = [p if p.is_shard(0) or sizes[i] == 1 else Replicate()
-                for i, p in enumerate(t.placements)]
-        if rows == list(t.placements):
-            local[name] = views[name]
+        dim = splits.get(name)
+        if sharding.is_dtensor(t):
+            views[name] = out = t.to_local()
+            gathers[name], kept = _leaf_gathers(t, dim)
+            for i, d in gathers[name]:
+                out = sharding.gather_dim(out, d,
+                                          t.device_mesh.get_group(i))
         else:
-            local[name] = t.redistribute(t.device_mesh, rows).to_local()
-            full[name] = rows
+            views[name] = out = t
+            kept = False
+        if dim is not None and not kept:
+            out = sharding.chunk(out, dim)
+            cut.add(name)
+        local[name] = out
 
     def put_back(new: dict) -> None:
         for name, t in c.items():
             out = new[name]
-            if name in full:
-                out = DTensor.from_local(
-                    out, t.device_mesh, full[name], run_check=False
-                ).redistribute(t.device_mesh, t.placements).to_local()
+            if name in cut:
+                out = sharding.all_gather(out, splits[name])
+            for i, d in reversed(gathers.get(name, ())):
+                mesh = t.device_mesh
+                out = out.chunk(mesh.shape[i], dim=d)[mesh.get_local_rank(i)]
             if out is not views[name]:
                 views[name].copy_(out)
 
-    return local, put_back
+    return local, put_back, "k" in splits
 
 
-def _spmd_serve(mesh, run, inputs, cache, **lanes):
+def _leaf_gathers(t, dim: Optional[int]):
+    """([(mesh dimension, tensor dimension), ...], kept): the all-gathers,
+    innermost mesh dimension first, that take a cache DTensor ``t``'s
+    local tensor to its rows over the batch axes, whole in every other
+    dimension; ``kept`` where "model" alone splits ``dim``, whose shard
+    is then left as it is (it is the layer's "model" chunk)."""
+    mesh = t.device_mesh
+    names, sizes = mesh.mesh_dim_names, tuple(mesh.shape)
+    ba = sharding.batch_axes(mesh) or ()
+    sharded = [(i, p.dim) for i, p in enumerate(t.placements)
+               if sizes[i] > 1 and p.is_shard()
+               and not (names[i] in ba and p.dim == 0)]
+    kept = (dim is not None and [d for _, d in sharded].count(dim) == 1
+            and (names.index("model"), dim) in sharded)
+    return [(i, d) for i, d in reversed(sharded)
+            if not (kept and names[i] == "model")], kept
+
+
+def _spmd_serve(mesh, run, inputs, cache, model_dims=None, **lanes):
     """``run(inputs, lanes, cache) -> (*outputs, cache)`` as the SPMD
     program: each rank runs its rows of ``inputs`` and of the per-lane
     ``lanes`` (``sharding.local_rows``) inside ``sharding.spmd()``. The
     batch is split when it divides over the batch axes, else every rank
     runs all of it. Outputs with a
     batch dimension come back as DTensors placed by rows when ``inputs``
-    was a DTensor, else gathered to the global batch. A split batch needs
-    a cache of DTensors (``launch.specs.cache_spec_tree``): a plain cache
-    there would hold stale rows of the others."""
+    was a DTensor (output i split over "model" along dimension
+    ``model_dims[i]`` when given), else gathered to the global batch. A
+    split batch needs a cache of DTensors
+    (``launch.specs.cache_spec_tree``): a plain cache there would hold
+    stale rows of the others."""
     from torch.distributed.tensor import DTensor, Replicate, Shard
 
     b = inputs.shape[0]
@@ -502,29 +596,33 @@ def _spmd_serve(mesh, run, inputs, cache, **lanes):
         *outs, cache = run(local(inputs),
                            {k: local(v) for k, v in lanes.items()}, cache)
     ba = sharding.batch_axes(mesh) or ()
-    placements = [Shard(0) if split and a in ba else Replicate()
-                  for a in mesh.mesh_dim_names]
+    model_dims = model_dims or {}
 
-    def wrap(t):
+    def wrap(i, t):
         if t.dim() == 0:
             return t
         if as_dtensor:
+            placements = [
+                Shard(0) if split and a in ba
+                else Shard(model_dims[i]) if a == "model" and i in model_dims
+                else Replicate() for a in mesh.mesh_dim_names]
             return DTensor.from_local(t, mesh, placements, run_check=False)
         return sharding.gather_rows(t) if split else t
 
-    return (*[wrap(t) for t in outs], cache)
+    return (*[wrap(i, t) for i, t in enumerate(outs)], cache)
 
 
-def _superblock_fn(cfg: ArchConfig, gather=_same):
+def _superblock_fn(cfg: ArchConfig):
     """The train forward of one super-block (``block_pattern``'s layers in
-    order): (x, positions, layer params) -> (x, the MoE aux loss); each
-    layer's params pass through ``gather`` (``sharding.gather_tree`` under
-    a mesh) inside, so that a checkpointed call gathers them again in
-    its recomputation."""
+    order): (x, positions, layer params) -> (x, the MoE aux loss). x may
+    be the residual's "model" chunk (between super-blocks), gathered
+    first; each layer takes its parameters inside, so that a checkpointed
+    call takes them again in its recomputation."""
     def run(x, positions, layer_params):
+        x = L.whole(x, cfg.d_model)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p_l in zip(cfg.block_pattern, layer_params):
-            x, aux = _apply_layer(kind, gather(p_l), x, cfg, positions, None,
+            x, aux = _apply_layer(kind, p_l, x, cfg, positions, None,
                                   None, None, None)
             if aux is not None:
                 aux_total = aux_total + aux
@@ -587,9 +685,7 @@ def train_loss(params, batch: dict, cfg: ArchConfig, aux_weight: float = 0.01):
 
 def _loss(params, batch, cfg, aux_weight, shards: int = 1):
     logits, aux, _ = forward(params, batch["inputs"], cfg)
-    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    nll = -torch.gather(logp, -1, batch["labels"][..., None].to(
-        torch.int64))[..., 0]
+    nll = _nll(logits, batch["labels"], cfg)
     mask = batch.get("mask")
     if shards > 1:
         # the sums of every rank's rows (their gradients pass through)
@@ -606,6 +702,64 @@ def _loss(params, batch, cfg, aux_weight, shards: int = 1):
         loss = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
     total = loss + aux_weight * aux
     return total, {"loss": loss, "aux_loss": aux, "total": total}
+
+
+# the log-sum-exp of a row of logits runs over this many equal vocabulary
+# blocks (fewer when the vocabulary has fewer powers of two), each block's
+# first, then across the blocks: the same operations whether the blocks
+# lie on one rank or are split over "model" (up to this many ranks)
+LSE_BLOCKS = 16
+
+
+def _nll(logits: torch.Tensor, labels: torch.Tensor,
+         cfg: ArchConfig) -> torch.Tensor:
+    """Next-token cross-entropy per position, lse(logits) - logits[label]
+    in f32, from logits that may be this rank's vocabulary chunk: the
+    blocks' log-sum-exps are gathered over "model" and the label's logit
+    is taken by the rank that holds it and summed over "model". The whole
+    logits are never built; the f32 copy of the chunk is the one tensor of
+    their size that autograd keeps."""
+    v = logits.shape[-1]
+    blocks = math.gcd(cfg.padded_vocab, LSE_BLOCKS)
+    if v != cfg.padded_vocab:
+        nm = cfg.padded_vocab // v
+        blocks = blocks // nm if blocks % nm == 0 else 1
+    x32 = logits.to(torch.float32)
+    lse = torch.logsumexp(x32.reshape(*x32.shape[:-1], blocks, v // blocks),
+                          dim=-1)
+    lse = torch.logsumexp(L.whole(lse, lse.shape[-1] * (
+        cfg.padded_vocab // v)), dim=-1)
+    local = labels.to(torch.int64) - _vocab_offset(logits, cfg)
+    picked = torch.gather(x32, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    if v != cfg.padded_vocab:
+        picked = sharding.all_reduce_sum(
+            torch.where((local >= 0) & (local < v), picked,
+                        torch.zeros((), device=picked.device)),
+            axes=("model",))
+    return lse - picked
+
+
+def _argmax_vocab(logits: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """The greedy id of every position, int32: ``torch.argmax``'s first
+    occurrence, from logits that may be this rank's vocabulary chunk."""
+    if logits.shape[-1] == cfg.padded_vocab:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
+    return split_argmax(logits, _vocab_offset(logits, cfg),
+                        lambda t: sharding.all_reduce_max(t, axes=("model",))
+                        ).to(torch.int32)
+
+
+def split_argmax(chunk: torch.Tensor, offset: int, reduce_max):
+    """``argmax`` over a last dimension split into chunks, this one
+    starting at column ``offset``: the chunk's max and first index, the
+    max over the chunks (``reduce_max``), then the lowest global index
+    among the chunks that reach it, so ties go to the first occurrence
+    as ``torch.argmax``'s do. int64."""
+    best = torch.amax(chunk, dim=-1)
+    top = reduce_max(best)
+    idx = torch.argmax(chunk, dim=-1) + offset
+    miss = torch.iinfo(torch.int64).max
+    return -reduce_max(-torch.where(best == top, idx, miss))
 
 
 def decode_step(params, token, cfg: ArchConfig, cache, cache_index,
@@ -625,7 +779,7 @@ def decode_step(params, token, cfg: ArchConfig, cache, cache_index,
                            active=active)
     logits, _, cache = forward(params, token, cfg, cache=cache,
                                cache_index=cache_index, active=active)
-    return logits[:, -1, :], cache
+    return _whole_vocab(logits[:, -1, :], cfg), cache
 
 
 def prefill_step(params, tokens, cfg: ArchConfig, cache, cache_index, length):
@@ -654,6 +808,5 @@ def prefill_step(params, tokens, cfg: ArchConfig, cache, cache_index, length):
                                cache_index=idx, positions=positions,
                                chunk_lengths=length)
     last = torch.clamp(length - 1, 0, s - 1)
-    last_logits = logits[torch.arange(b, device=dev), last]
-    ids = torch.argmax(logits, dim=-1).to(torch.int32)
-    return last_logits, ids, cache
+    last_logits = _whole_vocab(logits[torch.arange(b, device=dev), last], cfg)
+    return last_logits, _argmax_vocab(logits, cfg), cache

@@ -16,33 +16,50 @@ the reference's spec of the stacked leaf without its leading None.
 
 The SPMD program (``spmd``). Under ``models.train_loss``,
 ``prefill_step``, ``decode_step`` or the no-cache ``forward`` with a mesh
-active, each rank holds its data shard of the batch (rows over the
-batch axes, the same rows on every "model" rank) as plain tensors; the
-parameters may be DTensors placed by ``param_specs``, and every use
-gathers one to its full size (``gather_full``: an all-gather, whose
-backward reduce-scatters the gradient, summed over the batch axes). The
-quantities the reference computes over the whole batch are reduced
-explicitly: a CIM op's pre-scale absmax (``all_reduce_max``), the loss
-and the MoE load-balancing means (``all_reduce_sum``). Query positions
-of the train attention (``layers._train_attention``) and the MoE's
-expert buffers are split over "model" (``chunk`` / ``all_gather``, the
-counterparts of the reference's ``shard_map`` specs). Every rank
-backpropagates the global loss with seed 1: a replicated computation
-receives its whole gradient on every rank, a split one its part.
+active, each rank holds its data shard of the batch (rows over the batch
+axes) as plain tensors, and the work is split over "model" as the
+reference's sharding constraints split it:
+
+* every CIM projection is column-parallel: a rank computes the N-chunk of
+  its "model" coordinate (``split_model``: a DTensor parameter gathered
+  over the batch axes and left split over "model", whose gradient is
+  reduce-scattered as the parameter is placed; a plain tensor or a
+  ``PackedWeight`` sliced), with K whole. GR-MAC digitizes each n_r-deep
+  K sub-block per output element, so with both pre-scales taken over
+  every rank (``all_reduce_max``) each output element is the one computed
+  without a mesh. A dimension that does not divide "model" stays whole;
+* per-channel work (the MLP hidden, RG-LRU's width, SSM heads) runs on
+  this rank's channels, and whatever needs whole rows is gathered
+  (``all_gather``); the LM head's logits stay split over the vocabulary;
+* a global KV split over "model" is attended chunk by chunk in decode
+  and combined by two all-reduces (``models.layers``).
+
+Other parameters are gathered to their full size where they are used
+(``gather_full``). The quantities the reference computes over the whole
+batch are reduced explicitly: the pre-scales, the loss and the MoE
+load-balancing means (``all_reduce_sum``). Query positions of the train
+attention (``layers._train_attention``) and the MoE's expert buffers are
+split over "model" (``chunk`` / ``all_gather``, the counterparts of the
+reference's ``shard_map`` specs). Every rank backpropagates the global
+loss with seed 1: a replicated computation receives its whole gradient on
+every rank, a split one its part, and a replicated input feeding a split
+computation sums its gradient over "model" (``copy_to_model``).
 Collectives over a group of one rank are skipped, so a 1 x 1 mesh runs
 the same operations as no mesh.
 
-``shard(x, *spec)`` is the reference's sharding constraint: a no-op
-without a mesh or on a plain tensor, and a ``redistribute`` of a DTensor
-otherwise. The model's activations are the plain per-rank tensors above,
-whose layout the SPMD program fixes, so at the model's ``shard`` sites it
-changes nothing.
+``shard(x, *spec)`` is the reference's sharding constraint: a DTensor is
+redistributed to the spec; inside ``spmd()`` a plain tensor whose spec
+names "model" at a dimension that divides it is cut to this rank's chunk
+there (the residual stream between super-blocks); otherwise it is a
+no-op.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 import re
 import threading
+import weakref
 from contextlib import contextmanager
 from typing import Optional, Sequence, Tuple
 
@@ -54,9 +71,9 @@ __all__ = [
     "axis_divides", "param_specs", "named_sharding_tree", "placements",
     "mesh_sizes", "spmd", "in_spmd", "data_shards", "data_index",
     "gather_full", "gather_tree", "gather_rows", "local_rows",
-    "all_reduce_max",
-    "all_reduce_sum",
-    "chunk", "all_gather", "copy_to_model", "model_shards", "is_dtensor",
+    "all_reduce_max", "all_reduce_sum",
+    "chunk", "all_gather", "copy_to_model", "model_shards", "model_rank",
+    "splits", "split_model", "gather_dim", "is_dtensor",
 ]
 
 _ACTIVE_MESH = None
@@ -153,17 +170,22 @@ def _resolve(shape, spec, mesh) -> tuple:
 
 
 def shard(x: torch.Tensor, *spec) -> torch.Tensor:
-    """Best-effort sharding constraint: a no-op without an active mesh or
-    on a plain tensor; a DTensor is redistributed to ``spec`` (entries
-    "data", "all", "model", None; those that do not divide dropped)."""
-    from torch.distributed.tensor import DTensor
-
+    """Best-effort sharding constraint: a DTensor is redistributed to
+    ``spec`` (entries "data", "all", "model", None; those that do not
+    divide dropped). Inside ``spmd()`` a plain tensor is this rank's rows
+    already, and is cut to its "model" chunk of the dimension whose entry
+    is "model" when that dimension divides (``chunk``). Otherwise, and
+    without an active mesh, a no-op."""
     mesh = _ACTIVE_MESH
-    if mesh is None or not isinstance(x, DTensor):
+    if mesh is None:
         return x
-    return x.redistribute(x.device_mesh,
-                          placements(_resolve(x.shape, spec, mesh),
-                                     x.device_mesh))
+    if is_dtensor(x):
+        return x.redistribute(x.device_mesh,
+                              placements(_resolve(x.shape, spec, mesh),
+                                         x.device_mesh))
+    if "model" in spec and splits(x.shape[spec.index("model")]):
+        return chunk(x, spec.index("model"))
+    return x
 
 
 # ------------------------------------------------------------------ params
@@ -265,7 +287,7 @@ def spmd():
 def _groups(mesh, axes) -> list:
     """The process groups of ``axes`` of size > 1 (none: nothing to do)."""
     sizes = mesh_sizes(mesh)
-    return [mesh.get_group(a) for a in axes if sizes[a] > 1]
+    return [mesh.get_group(a) for a in axes if sizes.get(a, 1) > 1]
 
 
 def data_shards(mesh=None) -> int:
@@ -307,17 +329,74 @@ def gather_full(t):
     gradient comes back summed over the batch axes and placed as the
     parameter is (reduce-scattered). Plain tensors pass through. On a
     mesh of one rank the local tensor is the full one, taken as it is."""
-    if not is_dtensor(t):
-        return t
-    from torch.distributed.tensor import Partial, Replicate
+    return _param_local(t, keep_model=False) if is_dtensor(t) else t
 
+
+def _param_local(t, keep_model: bool) -> torch.Tensor:
+    """A DTensor parameter's local tensor gathered over every mesh
+    dimension that shards it, "model" kept split when ``keep_model``:
+    plain all-gathers, the innermost mesh dimension first (so ("pod",
+    "data") on one dimension comes back in order), not DTensor's
+    redistribution. The gradient is summed over the batch axes (each
+    rank's rows add their part: reduce-scattered where the parameter is
+    sharded, all-reduced where it is replicated) and cut to this rank's
+    chunk over "model", then placed as the parameter is."""
     mesh = t.device_mesh
-    if mesh.size() == 1:
-        return t.to_local()
-    ba = batch_axes(mesh) or ()
-    full = t.redistribute(mesh, [Replicate()] * mesh.ndim)
-    return full.to_local(grad_placements=[
-        Partial() if a in ba else Replicate() for a in mesh.mesh_dim_names])
+    sizes, ba = mesh_sizes(mesh), batch_axes(mesh) or ()
+    local = t.to_local()
+    for i in reversed(range(mesh.ndim)):
+        a, p = mesh.mesh_dim_names[i], t.placements[i]
+        if sizes[a] == 1:
+            continue
+        if p.is_shard() and not (keep_model and a == "model"):
+            local = _GatherDim.apply(local, p.dim, mesh.get_group(a),
+                                     a in ba)
+        elif a in ba and not p.is_shard():
+            local = _CopyToModel.apply(local, mesh.get_group(a))
+    return local
+
+
+# one all-gather / reduce-scatter into a single tensor (torch 2.13 renames
+# them, the older names stay)
+_GATHER_SINGLE = getattr(dist, "all_gather_single", None) \
+    or dist.all_gather_into_tensor
+_SCATTER_SINGLE = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
+
+
+def gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank of ``group``'s ``x`` concatenated along ``dim`` in rank
+    order, by one all-gather into a single tensor (no gradient)."""
+    n = dist.get_world_size(group)
+    xm = x.movedim(dim, 0).contiguous()
+    out = xm.new_empty((n * xm.shape[0], *xm.shape[1:]))
+    _GATHER_SINGLE(out, xm, group=group)
+    return out if dim == 0 else out.movedim(0, dim).contiguous()
+
+
+class _GatherDim(torch.autograd.Function):
+    """The group's chunks of ``dim`` concatenated in rank order
+    (``gather_dim``); the gradient reduce-scattered (``summed``: each
+    rank's gradient is a part of the sum, as a split consumer's or a
+    parameter's) or cut to this rank's chunk (a replicated consumer: every
+    rank holds the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, summed):
+        ctx.dim, ctx.group, ctx.summed = dim, group, summed
+        return gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        n, dim = dist.get_world_size(ctx.group), ctx.dim
+        if not ctx.summed:
+            return (g.chunk(n, dim=dim)[dist.get_rank(ctx.group)]
+                    .contiguous(), None, None, None)
+        gm = g.movedim(dim, 0).contiguous()
+        out = gm.new_empty((gm.shape[0] // n, *gm.shape[1:]))
+        _SCATTER_SINGLE(out, gm, group=ctx.group)
+        return (out if dim == 0 else out.movedim(0, dim).contiguous(),
+                None, None, None)
 
 
 def gather_tree(tree):
@@ -327,13 +406,14 @@ def gather_tree(tree):
     return tree_map(gather_full, tree)
 
 
-def all_reduce_max(t: torch.Tensor) -> torch.Tensor:
-    """The max of ``t`` over every rank of the active mesh inside
-    ``spmd()`` (no gradient: a pre-scale's absmax); else ``t``."""
+def all_reduce_max(t: torch.Tensor, axes=None) -> torch.Tensor:
+    """The max of ``t`` over every rank of the active mesh (or over
+    ``axes``) inside ``spmd()``, without a gradient (a pre-scale's
+    absmax, a softmax's running max); else ``t``."""
     mesh = _ACTIVE_MESH
     if mesh is None or not in_spmd():
         return t
-    groups = _groups(mesh, mesh.mesh_dim_names)
+    groups = _groups(mesh, mesh.mesh_dim_names if axes is None else axes)
     if not groups:
         return t
     t = t.detach().clone()
@@ -369,38 +449,41 @@ def all_reduce_sum(t: torch.Tensor, axes=None) -> torch.Tensor:
     return _AllReduceSum.apply(t, groups) if groups else t
 
 
-class _Chunk(torch.autograd.Function):
-    """This rank's chunk of ``dim``; the gradient is all-gathered."""
-
-    @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
-        n, r = dist.get_world_size(group), dist.get_rank(group)
+def _local_chunk(x: torch.Tensor, dim: int, group, groups: int):
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if groups == 1:
         return x.chunk(n, dim=dim)[r].contiguous()
+    return torch.cat([part.chunk(n, dim=dim)[r] for part
+                      in x.chunk(groups, dim=dim)], dim=dim)
+
+
+class _Chunk(torch.autograd.Function):
+    """This rank's chunk of ``dim``, of each of ``groups`` equal groups
+    along it (concatenated); the gradient is all-gathered and put back in
+    place."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group, groups):
+        ctx.dim, ctx.group, ctx.groups = dim, group, groups
+        return _local_chunk(x, dim, group, groups)
 
     @staticmethod
     def backward(ctx, g):
-        return _gather(g, ctx.dim, ctx.group), None, None
-
-
-class _AllGather(torch.autograd.Function):
-    """The chunks of every rank concatenated along ``dim``; the gradient
-    is this rank's chunk of the (replicated) upstream gradient."""
-
-    @staticmethod
-    def forward(ctx, x, dim, group):
-        ctx.dim, ctx.group = dim, group
-        return _gather(x, dim, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        n, r = dist.get_world_size(ctx.group), dist.get_rank(ctx.group)
-        return g.chunk(n, dim=ctx.dim)[r].contiguous(), None, None
+        full = gather_dim(g, ctx.dim, ctx.group)
+        if ctx.groups > 1:
+            # rank-major chunks of group-major parts -> group-major
+            n = dist.get_world_size(ctx.group)
+            parts = [c.chunk(ctx.groups, dim=ctx.dim)
+                     for c in full.chunk(n, dim=ctx.dim)]
+            full = torch.cat([parts[r][i] for i in range(ctx.groups)
+                              for r in range(n)], dim=ctx.dim)
+        return full, None, None, None
 
 
 class _CopyToModel(torch.autograd.Function):
     """Identity whose gradient is summed over the group: a replicated
-    tensor feeding a computation split over it."""
+    tensor feeding a computation split over it (over "model"), or a
+    parameter replicated over the batch axes."""
 
     @staticmethod
     def forward(ctx, x, group):
@@ -414,12 +497,6 @@ class _CopyToModel(torch.autograd.Function):
         return g, None
 
 
-def _gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, x.contiguous(), group=group)
-    return torch.cat(parts, dim=dim)
-
-
 def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
     """Every data shard's rows of ``x`` concatenated along dim 0, in the
     order of ``data_index`` (the innermost batch axis gathered first); no
@@ -428,7 +505,7 @@ def gather_rows(x: torch.Tensor, mesh=None) -> torch.Tensor:
     sizes = mesh_sizes(mesh)
     for a in reversed(batch_axes(mesh) or ()):
         if sizes[a] > 1:
-            x = _gather(x, 0, mesh.get_group(a))
+            x = gather_dim(x, 0, mesh.get_group(a))
     return x
 
 
@@ -461,14 +538,18 @@ def local_rows(t, mesh=None):
 def chunk(x: torch.Tensor, dim: int) -> torch.Tensor:
     """This "model" rank's chunk of ``dim`` inside ``spmd()`` (else x)."""
     g = _model_group(_ACTIVE_MESH) if in_spmd() else None
-    return x if g is None else _Chunk.apply(x, dim, g)
+    return x if g is None else _Chunk.apply(x, dim, g, 1)
 
 
-def all_gather(x: torch.Tensor, dim: int) -> torch.Tensor:
+def all_gather(x: torch.Tensor, dim: int, summed: bool = False
+               ) -> torch.Tensor:
     """The "model" ranks' chunks concatenated along ``dim`` inside
-    ``spmd()`` (else x)."""
+    ``spmd()`` (else x). Its gradient is this rank's chunk of the upstream
+    gradient, which every rank holds whole (a replicated consumer); with
+    ``summed``, the consumer is split over "model" and each rank holds a
+    part: the parts are reduce-scattered."""
     g = _model_group(_ACTIVE_MESH) if in_spmd() else None
-    return x if g is None else _AllGather.apply(x, dim, g)
+    return x if g is None else _GatherDim.apply(x, dim % x.dim(), g, summed)
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -483,3 +564,87 @@ def model_shards() -> int:
     if mesh is None or not in_spmd() or "model" not in mesh.mesh_dim_names:
         return 1
     return mesh_sizes(mesh)["model"]
+
+
+def model_rank() -> int:
+    """This rank's coordinate on "model" inside ``spmd()`` (else 0)."""
+    return (_ACTIVE_MESH.get_local_rank("model") if model_shards() > 1
+            else 0)
+
+
+def splits(n: int) -> bool:
+    """Whether the SPMD program splits a dimension of size ``n`` over
+    "model": inside ``spmd()``, "model" wider than one rank, and ``n`` a
+    multiple of it."""
+    nm = model_shards()
+    return nm > 1 and n % nm == 0
+
+
+# packed weights' chunks, made once per (weight, rank, width, groups)
+_PACKED_CHUNKS = weakref.WeakKeyDictionary()
+
+
+def split_model(t, dim: int = -1, groups: int = 1):
+    """This "model" rank's chunk of ``dim`` of a parameter, for a
+    computation split over "model" (the caller checks ``splits``): of
+    each of ``groups`` equal groups along ``dim`` when ``groups > 1`` (the
+    columns of an SSM input projection, z and x side by side).
+
+    A DTensor is gathered over the batch axes and left split over "model"
+    (``_param_local``; a K split exchanged for an N split by one
+    all-to-all); its local gradient is this rank's chunk, summed over the
+    batch axes when it is placed back. A plain tensor is sliced,
+    its gradient gathered over "model" (``chunk``). A ``PackedWeight`` is
+    cut along N, keeping the whole weight's scale ``sw``, once (the chunk
+    is kept beside the weight)."""
+    if not is_dtensor(t) and not torch.is_tensor(t):
+        key = (model_rank(), model_shards(), groups)
+        chunks = _PACKED_CHUNKS.setdefault(t, {})
+        if key not in chunks:
+            codes = _local_chunk(t.codes, 1, _model_group(_ACTIVE_MESH),
+                                 groups)
+            chunks[key] = dataclasses.replace(t, codes=codes,
+                                              n=codes.shape[1])
+        return chunks[key]
+    dim = dim % t.dim()
+    group = _model_group(_ACTIVE_MESH)
+    if not is_dtensor(t):
+        return _Chunk.apply(t, dim, group, groups)
+    mesh = t.device_mesh
+    p = t.placements[mesh.mesh_dim_names.index("model")]
+    local = _param_local(t, keep_model=True)
+    if groups == 1 and p.is_shard(dim):
+        return local
+    if groups == 1 and p.is_shard(0) and t.dim() == 2 and dim == 1:
+        # a (K, N) weight stored with K over "model" (``wo``,
+        # ``out_proj``): its blocks exchanged over "model"
+        return _RowsToCols.apply(local, group)
+    if p.is_shard():
+        local = _GatherDim.apply(local, p.dim, group, False)
+    return _Chunk.apply(local, dim, group, groups)
+
+
+def _all_to_all(x: torch.Tensor, split: int, cat: int, group):
+    """``x`` cut into the group's count of chunks along ``split``, chunk j
+    sent to rank j, the chunks received concatenated along ``cat`` in
+    rank order."""
+    n = dist.get_world_size(group)
+    inp = torch.stack(x.chunk(n, dim=split)).contiguous()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=group)
+    return torch.cat(out.unbind(0), dim=cat)
+
+
+class _RowsToCols(torch.autograd.Function):
+    """A (K / n, N) row chunk of a weight to its (K, N / n) column chunk
+    over the group (one all-to-all); the gradient goes back the same
+    way."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, 1, 0, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, 0, 1, ctx.group), None

@@ -12,6 +12,13 @@ package's, on torch's ``fake`` process group (no data moved).
   shard that stacked layer axis over "data", where the port's (n,) bias
   of one layer is replicated over "data". Those leaves (and their AdamW
   moments) are summed on each side from its own placements.
+* The same trace's flops a device are at most twice the reference's
+  ``cost_analysis()`` flops of the cell lowered in its roofline mode
+  (layers unrolled, attention unchunked), in the same subprocess: the
+  work is split over "model" as the reference splits it (a program that
+  replicated the projections over the 4-wide "model" axis would do about
+  four times the reference's). The reference's ``memory_analysis`` temps
+  are printed beside the port's.
 * Gathering each super-block's parameters where they are used keeps the
   peak below gathering the whole tree first (qwen2-1.5b's prefill and
   decode on the 16 x 16 mesh).
@@ -60,14 +67,23 @@ named = tuple(json.loads(sys.argv[2]))
 S.SHAPES.update({k: S.ShapeCase(*v) for k, v in small.items()})
 mesh = make_mesh((2, 4), ("data", "model"))
 arch = get_config("qwen2-1.5b").reduced()
-out = {}
-for shape in small:
+unrolled = arch.replace(scan_layers=False, attn_chunk=None)
+
+
+def compile_cell(arch, shape):
     with use_mesh(mesh):
         cell = S.make_cell(arch, shape, mesh)
-        compiled = jax.jit(cell.fn, in_shardings=cell.in_shardings,
-                           out_shardings=cell.out_shardings,
-                           donate_argnums=cell.donate_argnums
-                           ).lower(*cell.in_specs).compile()
+        return cell, jax.jit(cell.fn, in_shardings=cell.in_shardings,
+                             out_shardings=cell.out_shardings,
+                             donate_argnums=cell.donate_argnums
+                             ).lower(*cell.in_specs).compile()
+
+
+out = {}
+for shape in small:
+    cell, compiled = compile_cell(arch, shape)
+    cost = compile_cell(unrolled, shape)[1].cost_analysis()
+    cost = cost[0] if isinstance(cost, (list, tuple)) else cost
     leaves = jax.tree_util.tree_flatten_with_path(cell.in_specs)[0]
     shards = jax.tree_util.tree_leaves(
         cell.in_shardings, is_leaf=lambda s: isinstance(s, NamedSharding))
@@ -77,8 +93,9 @@ for shape in small:
         if p.endswith(named):
             named_bytes += int(np.prod(sh.shard_shape(v.shape))) \
                 * v.dtype.itemsize
-    out[shape] = [compiled.memory_analysis().argument_size_in_bytes,
-                  named_bytes]
+    mem = compiled.memory_analysis()
+    out[shape] = [mem.argument_size_in_bytes, named_bytes,
+                  float(cost["flops"]), mem.temp_size_in_bytes]
 print(json.dumps(out))
 """
 
@@ -104,12 +121,17 @@ def test_argument_bytes_match_reference():
             named = sum(t.to_local().numel() * t.element_size()
                         for p, t in tree_paths(list(cell.args))
                         if p.endswith(STACK_SHARDED))
-            _, mem, _ = roofline_from_trace(arch.name, shape, "2x4", 8,
-                                            cell.fn, cell.args, arch, case)
+            _, mem, cost = roofline_from_trace(
+                arch.name, shape, "2x4", 8, cell.fn, cell.args, arch, case)
             got = mem["arguments"]
-            want, ref_named = ref[shape]
+            want, ref_named, ref_flops, ref_temps = ref[shape]
+            print(shape, "flops a device: port", cost["flops_per_device"],
+                  "reference", ref_flops, "; temps: port", mem["temps"],
+                  "reference", ref_temps)
             assert named > ref_named > 0, shape
             assert got - named == want - ref_named, (shape, got, want)
+            assert 0 < cost["flops_per_device"] <= 2 * ref_flops, (
+                shape, cost["flops_per_device"], ref_flops)
 
 
 @pytest.mark.parametrize("shape", ["prefill_32k", "decode_32k"])

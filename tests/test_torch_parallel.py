@@ -19,11 +19,14 @@ against the unsharded one on gloo process groups.
   within 2e-4 of each tensor's largest entry, and so do the reduced
   recurrentgemma (remat on) and mamba2, whose scans and SSD form run per
   data shard; one AdamW step on the DTensors moves the parameters as the
-  unsharded step does; ``paper-cim-120m.reduced()``
-  in GR-MAC mode gives the unsharded loss bitwise (every projection sees
-  the whole weight and the global absmax); ``cim_matmul`` on DTensor
-  operands equals the plain call bitwise; ``shard`` and ``reshard_tree``
-  place DTensors as their specs say.
+  unsharded step does. The sharded program splits every projection by N
+  over "model" and computes the loss on the vocabulary split over
+  "model" (each block's log-sum-exp gathered): ``paper-cim-120m.reduced()``
+  in GR-MAC mode gives the unsharded loss bitwise (each output element
+  sees its whole K and both absmaxes over every rank, and the loss's
+  blocks are the unsharded loss's); ``cim_matmul`` on DTensor operands
+  equals the plain call bitwise; ``shard`` and ``reshard_tree`` place
+  DTensors as their specs say.
 
 The MoE's grouped dispatch and expert parallelism are in
 ``test_torch_parallel_moe.py``.

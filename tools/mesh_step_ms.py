@@ -36,8 +36,8 @@ from pathlib import Path
 # the SPMD program's helpers whose host time the profile reports (those
 # a commit lacks are left out of its line)
 PROFILED = ("_spmd_serve", "_layer_cache", "put_back", "gather_tree",
-            "gather_full", "local_rows", "all_reduce_max", "_groups",
-            "mesh_sizes")
+            "gather_full", "split_model", "local_rows", "all_reduce_max",
+            "_groups", "mesh_sizes")
 
 
 def _median(xs):
