@@ -862,8 +862,7 @@ def spmd_split_worker(rank: int, world: int, store: str, out_dir: str,
 
     from repro_torch.configs import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels.grmac_matmul import (DESIGNS, INSTANTIATIONS,
-                                                  grmac_matmul_cuda)
+    from repro_torch.kernels.grmac_matmul import DESIGNS, grmac_matmul_cuda
     from repro_torch.launch import specs
     from repro_torch.models import forward, init_params
     from repro_torch.parallel import sharding
@@ -930,8 +929,6 @@ def spmd_split_worker(rank: int, world: int, store: str, out_dir: str,
                 grmac_matmul_cuda.launches = 0
                 grmac_matmul_cuda.launches_by_design = dict.fromkeys(
                     DESIGNS, 0)
-                grmac_matmul_cuda.launches_by_instantiation = dict.fromkeys(
-                    INSTANTIATIONS, 0)
                 launch_n.clear()
                 t0 = time.perf_counter()
                 for prompt in prompts:
@@ -1090,8 +1087,6 @@ def main() -> int:
     def reset_counts():
         grmac_matmul_cuda.launches = 0
         grmac_matmul_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
-        grmac_matmul_cuda.launches_by_instantiation = dict.fromkeys(
-            INSTANTIATIONS, 0)
 
     # ---------------------------------------------------------------- env
     require_full_f32()
@@ -1395,9 +1390,11 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_us = 1e6 * (time.perf_counter() - t0)
         events = prof.key_averages()
-        # device-side entries only: an operator's own row repeats its kernels
+        # device-side entries only: an operator's own row repeats its kernels,
+        # and the program's scopes are listed on the device's side too
         kernels = [e for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation]
         busy_us = sum(dev_us(e) for e in kernels)
         launch_calls = sum(e.count for e in events
                            if e.key.startswith(("cudaLaunchKernel",
@@ -2721,12 +2718,16 @@ def main() -> int:
                 reset_counts()
                 engine, prefill_ms, decode_ms, _, last = run_engine(
                     arch, params, prompts, 32, dict(max_ctx=512), backend)
+                # a sanitizing launch leaves one kernel buffer, a plain one
+                # none
+                kernel_buffers = sum(p[3] for p in sanitize._PENDING)
                 calls = pending_calls()
                 runs[backend] = dict(
                     streams=[list(t) for t in engine.tokens],
                     calls=calls,
                     records=[dict(r) for r in sanitize.VIOLATIONS],
-                    launches=dict(grmac_matmul_cuda.launches_by_instantiation),
+                    launches=grmac_matmul_cuda.launches,
+                    kernel_buffers=kernel_buffers,
                     by_design=dict(grmac_matmul_cuda.launches_by_design),
                     prefill_ms=prefill_ms,
                     decode_ms_median=float(np.median(decode_ms)))
@@ -2777,8 +2778,8 @@ def main() -> int:
             "kernel_streams_equal_unsanitized": k_run["streams"] == streams,
             "plain_streams_equal_unsanitized": r_run["streams"] == streams,
             "records_equal": recs == r_run["records"],
-            "all_sanitizing": k_run["launches"]["plain"] == 0
-            and k_run["launches"]["sanitizing"] > 0,
+            "all_sanitizing": 0 < k_run["launches"]
+            == k_run["kernel_buffers"],
             "both_designs": all(k_run["by_design"][d] > 0 for d in DESIGNS),
             "nonfinite_zero": nonfinite == 0,
             "nan_caught_by_both": bool(
@@ -3138,12 +3139,9 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         "checked_vs_plain": True,
         "launches_by_design": by_design_total,
-        # the plain instantiation on every path but analysis_sanitize, the
-        # sanitizing one there
-        "launches_by_instantiation": {
-            "plain": sum(v for k, v in launches_by_path.items()
-                         if k != "analysis_sanitize"),
-            "sanitizing": launches_by_path.get("analysis_sanitize", 0)},
+        # the sanitizing instantiation on analysis_sanitize, the plain one
+        # on every other path
+        "sanitizing_launches": launches_by_path.get("analysis_sanitize", 0),
         "sanitizing_graph_ms_per_forward": totals["sanitizing"],
         # times of the 85 row launches of one paper-cim-120m decode forward
         # (M = 8), the weights packed in 4 bits; the bound at their stored

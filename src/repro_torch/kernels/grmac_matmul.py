@@ -19,12 +19,12 @@ applies the pre- and post-scale itself. The kernel indexes in 32 bits, so
 a call whose x or output reaches 2**31 elements is launched in row chunks
 that stay below it (rows are independent, and every chunk reads the one
 absmax: the result is the unchunked one). ``grmac_matmul_cuda.launches``
-counts its launches, ``launches_by_design`` per design and
-``launches_by_instantiation`` per instantiation: ``plain``, or
-``sanitizing`` when ``REPRO_SANITIZE`` is set (read on every call; the
-checks of ``analysis.sanitize``, counted inside the kernel into a 5-entry
-device buffer that this wrapper allocates and zeroes only then, and that
-is read when the records are).
+counts its launches and ``launches_by_design`` per design. Each design runs
+in its plain instantiation, or in the ``sanitizing`` one when
+``REPRO_SANITIZE`` is set (read on every call; the checks of
+``analysis.sanitize``, counted inside the kernel into a 5-entry device
+buffer that this wrapper allocates and zeroes only then, and that is read
+when the records are).
 """
 from __future__ import annotations
 
@@ -249,7 +249,6 @@ def grmac_matmul_cuda(
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     san = (torch.zeros(5, dtype=torch.int64, device=x.device)
            if sanitize.enabled() else None)
-    inst = INSTANTIATIONS[san is not None]
     fw = w.fmt_w
     stream = torch.cuda.current_stream(x.device).cuda_stream
     # rows per launch: x's and the output's chunks below 2**31 elements, in
@@ -276,7 +275,6 @@ def grmac_matmul_cuda(
                                f"({design}): cudaError {err}")
         grmac_matmul_cuda.launches += 1
         grmac_matmul_cuda.launches_by_design[design] += 1
-        grmac_matmul_cuda.launches_by_instantiation[inst] += 1
     if san is not None:
         sanitize.defer_kernel(tag, san, spans=granularity != "conv")
     return out
@@ -284,5 +282,3 @@ def grmac_matmul_cuda(
 
 grmac_matmul_cuda.launches = 0
 grmac_matmul_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
-grmac_matmul_cuda.launches_by_instantiation = dict.fromkeys(INSTANTIATIONS,
-                                                            0)

@@ -129,19 +129,24 @@ def _cim_matmul_2d(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
         _check_fp_input(cfg)
         on_card = x32.device.type == "cuda" and backend == "auto"
         if on_card or isinstance(w, PackedWeight):
-            pw = w if isinstance(w, PackedWeight) else pack_weight(
-                w, cfg.fmt_w, cfg.n_r, reduce=_over_model)
+            pw = w
+            if not isinstance(w, PackedWeight):
+                with named_scope("cim.pack"):
+                    pw = pack_weight(w, cfg.fmt_w, cfg.n_r,
+                                     reduce=_over_model)
             if on_card:
                 # max |x| in one reduction (the kernel clamps it to sx)
+                with named_scope("cim.prescale"):
+                    amax = _over_batch(
+                        torch.linalg.vector_norm(x32, float("inf")))
                 out = grmac_matmul_cuda(
-                    x32.contiguous(), pw,
-                    _over_batch(
-                        torch.linalg.vector_norm(x32, float("inf"))),
-                    fmt_x=cfg.fmt_x, enob=cfg.resolved_enob(),
-                    granularity=cfg.granularity, tag=tag)
+                    x32.contiguous(), pw, amax, fmt_x=cfg.fmt_x,
+                    enob=cfg.resolved_enob(), granularity=cfg.granularity,
+                    tag=tag)
                 return out.to(dtype)
-            sx = torch.clamp(
-                _over_batch(torch.amax(torch.abs(x32))), min=_EPS)
+            with named_scope("cim.prescale"):
+                sx = torch.clamp(
+                    _over_batch(torch.amax(torch.abs(x32))), min=_EPS)
             out = grmac_matmul(x32 / sx, unpack_weight(pw), fmt_x=cfg.fmt_x,
                                fmt_w=cfg.fmt_w, n_r=cfg.n_r,
                                enob=cfg.resolved_enob(),
@@ -149,7 +154,8 @@ def _cim_matmul_2d(x: torch.Tensor, w: Union[torch.Tensor, PackedWeight],
                                tag=tag)
             return (out * (sx * pw.sw)).to(dtype)
     w32 = w.to(torch.float32)
-    sx = torch.clamp(_over_batch(torch.amax(torch.abs(x32))), min=_EPS)
+    with named_scope("cim.prescale"):
+        sx = torch.clamp(_over_batch(torch.amax(torch.abs(x32))), min=_EPS)
     sw = torch.clamp(_over_model(torch.amax(torch.abs(w32))), min=_EPS)
     xn = x32 / sx
     wn = w32 / sw

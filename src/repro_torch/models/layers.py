@@ -258,10 +258,12 @@ def _chunk_prefill_attention(q, k, v, x, cache, cache_index, chunk_lengths,
         t_of_slot = slot - cache_index[:, None]                  # (B, S_ctx)
         writes = (t_of_slot >= 0) & (t_of_slot < lengths[:, None])
     src = t_of_slot.clamp(0, s - 1)[:, :, None, None]
-    for name, new in (("k", k), ("v", v)):
-        c = cache[name]
-        upd = torch.gather(new.to(c.dtype), 1, src.expand(-1, -1, *c.shape[2:]))
-        torch.where(writes[:, :, None, None], upd, c, out=c)
+    with named_scope("attn.cache_write"):
+        for name, new in (("k", k), ("v", v)):
+            c = cache[name]
+            upd = torch.gather(new.to(c.dtype), 1,
+                               src.expand(-1, -1, *c.shape[2:]))
+            torch.where(writes[:, :, None, None], upd, c, out=c)
     if not local:
         # linear slots' positions are their indices: slots above a query's
         # position (later steps, dropped padding, stale tail) are masked
@@ -329,14 +331,16 @@ def _decode_attention(q, k, v, x, cache, cache_index, active,
         write_at = (torch.remainder(cache_index, s_ctx) if local
                     else cache_index.clamp(max=s_ctx - 1))
     kk, vv = cache["k"], cache["v"]
-    if active is not None or kv_split:
-        old_k, old_v = kk[lane, write_at].clone(), vv[lane, write_at].clone()
-    new_k, new_v = k[:, 0].to(kk.dtype), v[:, 0].to(vv.dtype)
-    if kv_split:
-        new_k = torch.where(own, new_k, old_k)
-        new_v = torch.where(own, new_v, old_v)
-    kk[lane, write_at] = new_k
-    vv[lane, write_at] = new_v
+    with named_scope("attn.cache_write"):
+        if active is not None or kv_split:
+            old_k = kk[lane, write_at].clone()
+            old_v = vv[lane, write_at].clone()
+        new_k, new_v = k[:, 0].to(kk.dtype), v[:, 0].to(vv.dtype)
+        if kv_split:
+            new_k = torch.where(own, new_k, old_k)
+            new_v = torch.where(own, new_v, old_v)
+        kk[lane, write_at] = new_k
+        vv[lane, write_at] = new_v
     qg = q.reshape(b, 1, kv, h // kv, dh)
     with named_scope("dig_attn"):
         scores = torch.einsum("bskgd,btkd->bkgst", qg, kk.to(x.dtype))
@@ -360,8 +364,9 @@ def _decode_attention(q, k, v, x, cache, cache_index, active,
             out = torch.einsum("bkgst,btkd->bskgd", probs, vv.to(x.dtype))
     if active is not None:
         keep = active[:, None, None]
-        kk[lane, write_at] = torch.where(keep, kk[lane, write_at], old_k)
-        vv[lane, write_at] = torch.where(keep, vv[lane, write_at], old_v)
+        with named_scope("attn.cache_write"):
+            kk[lane, write_at] = torch.where(keep, kk[lane, write_at], old_k)
+            vv[lane, write_at] = torch.where(keep, vv[lane, write_at], old_v)
     return out, cache
 
 

@@ -59,6 +59,7 @@ import torch.utils.checkpoint as ckpt
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.core.formats import IntFormat
+from repro_torch.core.scopes import named_scope
 from repro_torch.kernels.packed import pack_weight
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe
@@ -389,10 +390,11 @@ def forward(
             mesh, run, inputs, cache, model_dims=split,
             cache_index=cache_index, positions=positions,
             chunk_lengths=chunk_lengths, active=active)
-    if cfg.input_mode == "tokens":
-        x = _embed(params["embed"], inputs).to(_dtype(cfg))
-    else:
-        x = inputs.to(_dtype(cfg))
+    with named_scope("model.embed"):
+        if cfg.input_mode == "tokens":
+            x = _embed(params["embed"], inputs).to(_dtype(cfg))
+        else:
+            x = inputs.to(_dtype(cfg))
     x = sharding.shard(x, "data", None, None)
     b, s = x.shape[:2]
     dev = x.device
@@ -420,32 +422,34 @@ def forward(
         layers = range(cfg.n_layers)
     kinds = cfg.blocks()
     for i in layers:
-        c, put_back, kv_split = _layer_cache(
-            cache["layers"][i] if cache is not None else None, kinds[i],
-            cfg, decode=chunk_lengths is None)
-        x, aux = _apply_layer(kinds[i], params["layers"][i], x, cfg,
-                              positions, c, cache_index, chunk_lengths,
-                              active, kv_split)
-        if put_back is not None:
-            put_back(c)
+        with named_scope("model.layer"):
+            c, put_back, kv_split = _layer_cache(
+                cache["layers"][i] if cache is not None else None, kinds[i],
+                cfg, decode=chunk_lengths is None)
+            x, aux = _apply_layer(kinds[i], params["layers"][i], x, cfg,
+                                  positions, c, cache_index, chunk_lengths,
+                                  active, kv_split)
+            if put_back is not None:
+                put_back(c)
         if aux is not None:
             aux_total = aux_total + aux
-    x = L.rmsnorm(params["final_norm"], x)
-    # the LM head is a CIM site in both tied and untied form (served params
-    # carry a tied head's packed embed.T as "lm_head"); its logits stay
-    # split over the vocabulary where it divides "model"
-    head = (params["lm_head"] if "lm_head" in params
-            else {"w": params["embed"].T})
-    logits = L.dense(head, x, cfg.cim, "head", logical_n=cfg.vocab_size,
-                     gather=False)
-    if cfg.padded_vocab != cfg.vocab_size:
-        cols = torch.arange(logits.shape[-1], device=dev)
-        off = _vocab_offset(logits, cfg)
-        if off:
-            cols = cols + off
-        logits = torch.where(cols >= cfg.vocab_size,
-                             torch.tensor(-1e30, dtype=logits.dtype,
-                                          device=dev), logits)
+    with named_scope("model.head"):
+        x = L.rmsnorm(params["final_norm"], x)
+        # the LM head is a CIM site in both tied and untied form (served
+        # params carry a tied head's packed embed.T as "lm_head"); its
+        # logits stay split over the vocabulary where it divides "model"
+        head = (params["lm_head"] if "lm_head" in params
+                else {"w": params["embed"].T})
+        logits = L.dense(head, x, cfg.cim, "head", logical_n=cfg.vocab_size,
+                         gather=False)
+        if cfg.padded_vocab != cfg.vocab_size:
+            cols = torch.arange(logits.shape[-1], device=dev)
+            off = _vocab_offset(logits, cfg)
+            if off:
+                cols = cols + off
+            logits = torch.where(cols >= cfg.vocab_size,
+                                 torch.tensor(-1e30, dtype=logits.dtype,
+                                              device=dev), logits)
     return logits, aux_total, cache
 
 
@@ -622,8 +626,9 @@ def _superblock_fn(cfg: ArchConfig):
         x = L.whole(x, cfg.d_model)
         aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
         for kind, p_l in zip(cfg.block_pattern, layer_params):
-            x, aux = _apply_layer(kind, p_l, x, cfg, positions, None,
-                                  None, None, None)
+            with named_scope("model.layer"):
+                x, aux = _apply_layer(kind, p_l, x, cfg, positions, None,
+                                      None, None, None)
             if aux is not None:
                 aux_total = aux_total + aux
         return x, aux_total

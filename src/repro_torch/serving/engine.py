@@ -91,8 +91,10 @@ Dispatch seam: every model dispatch goes through ``_dispatch(key, fn,
 "self" drafter's and a token-mode prefill's; ``draft[sample=False]``
 another draft arch's; ``prefill[bucket=…]``: a prefill chunk, a greedy
 verify and a repair; ``verify[bucket=…]``: a sampled verify), and every
-device→host transfer through ``_fetch``. Both are plain calls here;
-``analysis.invariants.InstrumentedEngine`` counts at them.
+device→host transfer through ``_fetch``. Both are plain calls here, each
+in a scope of its own (``core.scopes``: ``engine.<key>``,
+``engine.fetch``); ``analysis.invariants.InstrumentedEngine`` counts at
+them.
 """
 from __future__ import annotations
 
@@ -106,6 +108,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import costs
 from repro_torch.core.device import require_full_f32, resolve_device
+from repro_torch.core.scopes import named_scope
 from repro_torch.models import (decode_step, forward, init_cache,
                                 pack_params, prefill_step)
 from repro_torch.serving import sampling
@@ -248,14 +251,16 @@ class Engine:
 
     def _dispatch(self, key: str, fn: Callable, *args):
         """One model dispatch, ``fn(*args)``, named ``key`` (the seam the
-        invariant harness counts at)."""
-        return fn(*args)
+        invariant harness counts at), in the scope ``engine.<key>``."""
+        with named_scope(f"engine.{key}"):
+            return fn(*args)
 
     def _snapshot(self, host_state: np.ndarray) -> torch.Tensor:
         """A device copy of mutable per-slot host state. ``torch.tensor``
         always copies (``from_numpy``/``as_tensor`` would alias a CPU
         array, which the engine mutates right after dispatching)."""
-        return torch.tensor(host_state, device=self.device)
+        with named_scope("engine.h2d"):
+            return torch.tensor(host_state, device=self.device)
 
     # ------------------------------------------------------------ prefill
     def add_request(self, prompt: List[int], *, key: Optional[int] = None,
@@ -459,15 +464,16 @@ class Engine:
         """(B,) int32 ids on the device from (B, V) logits: the argmax, or
         the per-lane sampled selection, whose event counts then advance in
         the seeded lanes among ``lanes``."""
-        if not sample:
-            return torch.argmax(logits, dim=-1).to(torch.int32)
-        eff = self._effective_temps(key)
-        keys = sampling.lane_keys(key if key is not None else 0,
-                                  self._seed, self._ctr)
-        ids = sampling.select(logits, self._snapshot(eff),
-                              self._snapshot(keys))
-        self._ctr[lanes & (eff > 0) & (self._seed >= 0)] += 1
-        return ids
+        with named_scope("engine.choose"):
+            if not sample:
+                return torch.argmax(logits, dim=-1).to(torch.int32)
+            eff = self._effective_temps(key)
+            keys = sampling.lane_keys(key if key is not None else 0,
+                                      self._seed, self._ctr)
+            ids = sampling.select(logits, self._snapshot(eff),
+                                  self._snapshot(keys))
+            self._ctr[lanes & (eff > 0) & (self._seed >= 0)] += 1
+            return ids
 
     def _reset_slot_state(self, slot: int) -> None:
         """Zero one lane's cache before a freed slot hosts a new request:
@@ -784,8 +790,10 @@ class Engine:
         """The single device→host transfer of a dispatch that needs one: a
         (batch_slots,) int32 id array per decode or draft step and per
         first-token selection, a (batch_slots, bucket[+1]) int32 array per
-        speculative verify; a repair crosses nothing."""
-        return ids_dev.cpu().numpy()
+        speculative verify; a repair crosses nothing. The host waits for
+        the device here, in the scope ``engine.fetch``."""
+        with named_scope("engine.fetch"):
+            return ids_dev.cpu().numpy()
 
 
 def energy_report(arch: ArchConfig, *, batch: int = 1,

@@ -113,6 +113,7 @@ from typing import Callable, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.core.scopes import named_scope
 from repro_torch.serving import sampling
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.params import SamplingParams
@@ -500,29 +501,36 @@ class Scheduler:
         counts) for observability; request objects carry the full
         accounting. Pass ``key`` to sample (split per use; greedy
         otherwise)."""
-        now = self.clock()
-        wall = time.perf_counter()
-        self.stats["steps"] += 1
-        depth = len(self.waiting)
-        self.stats["queue_depth_max"] = max(self.stats["queue_depth_max"],
-                                            depth)
-        self.stats["queue_depth_sum"] += depth
+        with named_scope("sched.step"):
+            now = self.clock()
+            wall = time.perf_counter()
+            self.stats["steps"] += 1
+            depth = len(self.waiting)
+            self.stats["queue_depth_max"] = max(
+                self.stats["queue_depth_max"], depth)
+            self.stats["queue_depth_sum"] += depth
 
-        self._maybe_preempt(now)
-        k_fill = k_dec = None
-        if key is not None:
-            k_fill, k_dec = sampling.split(key)
-        admitted = self._admit(now, wall)
-        n_before = len(self.finished)
-        spent = self._spend_prefill_budget(now, k_fill)
-        decoded = self._decode(now, k_dec) if self.running else {}
-        return {
-            "admitted": [r.rid for r in admitted],
-            "prefill_tokens": spent,
-            "decoded": decoded,
-            "finished": [r.rid for r in self.finished[n_before:]],
-            "queue_depth": depth,
-        }
+            with named_scope("sched.preempt"):
+                self._maybe_preempt(now)
+            k_fill = k_dec = None
+            if key is not None:
+                k_fill, k_dec = sampling.split(key)
+            with named_scope("sched.admit"):
+                admitted = self._admit(now, wall)
+            n_before = len(self.finished)
+            with named_scope("sched.prefill"):
+                spent = self._spend_prefill_budget(now, k_fill)
+            decoded = {}
+            if self.running:
+                with named_scope("sched.decode"):
+                    decoded = self._decode(now, k_dec)
+            return {
+                "admitted": [r.rid for r in admitted],
+                "prefill_tokens": spent,
+                "decoded": decoded,
+                "finished": [r.rid for r in self.finished[n_before:]],
+                "queue_depth": depth,
+            }
 
     # ----------------------------------------------------------- metrics
     def metrics(self, slo_ttft: Optional[float] = None) -> dict:

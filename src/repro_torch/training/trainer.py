@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import require_full_f32, resolve_device
+from repro_torch.core.scopes import named_scope
 from repro_torch.models import init_params, train_loss
 from repro_torch.training import checkpoint as ckpt
 from repro_torch.training.fault import Heartbeat, HeartbeatBoard
@@ -61,10 +62,13 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig) -> Callable:
     ocfg, nmb = tcfg.opt, tcfg.microbatches
 
     def grads_of(params, batch):
-        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
-        total, metrics = train_loss(leaves, batch, arch)
-        grads = torch.autograd.grad(total, tree_leaves(leaves),
-                                    materialize_grads=True)
+        with named_scope("train.forward"):
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
+            total, metrics = train_loss(leaves, batch, arch)
+        with named_scope("train.backward"):
+            grads = torch.autograd.grad(total, tree_leaves(leaves),
+                                        materialize_grads=True)
         it = iter(grads)
         return (tree_map(lambda _: next(it), params),
                 {k: v.detach() for k, v in metrics.items()})
@@ -85,11 +89,13 @@ def make_train_step(arch: ArchConfig, tcfg: TrainConfig) -> Callable:
                 # the whole metrics dict: an MoE aux loss survives
                 metrics = {k: (0 if metrics is None else metrics[k])
                            + v / nmb for k, v in m.items()}
-        if ocfg.grad_compression:
-            q, scales, err = compress_grads(grads, opt_state["err"])
-            grads = decompress_grads(q, scales)
-            opt_state = dict(opt_state, err=err)
-        params, opt_state, om = apply_updates(params, grads, opt_state, ocfg)
+        with named_scope("train.optimizer"):
+            if ocfg.grad_compression:
+                q, scales, err = compress_grads(grads, opt_state["err"])
+                grads = decompress_grads(q, scales)
+                opt_state = dict(opt_state, err=err)
+            params, opt_state, om = apply_updates(params, grads, opt_state,
+                                                  ocfg)
         return params, opt_state, dict(metrics, **om)
 
     return train_step

@@ -15,7 +15,8 @@ gradients through the kernel (its per-call route, under remat) against
 the plain version's, and the kernel's sanitizing instantiation (both
 designs, every granularity, NaN and ragged shapes) counting exactly what
 the plain version's checks count, its output bitwise the plain
-instantiation's.
+instantiation's, and a profiled train step's scopes on autograd's device
+thread.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. This file imports no JAX, so it also runs on the
@@ -26,6 +27,8 @@ Tolerances: bitwise at FP6_E3M2 x FP4_E2M1 (every partial sum is exact in
 f32 in any order); rtol = atol = 1e-5 for wider formats, whose sums round
 in the kernel's order, not the plain version's.
 """
+import re
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -866,10 +869,11 @@ def test_sanitizing_kernel_counts_equal_plain_version(design, granularity,
     base = grmac_matmul(x, w, design=design, **kw)
     monkeypatch.setenv(sanitize.ENV_VAR, "1")
     sanitize.clear()
-    before = dict(grmac_matmul_cuda.launches_by_instantiation)
+    before = grmac_matmul_cuda.launches
     got = grmac_matmul(x, w, design=design, tag="k", **kw)
-    assert grmac_matmul_cuda.launches_by_instantiation["sanitizing"] == \
-        before["sanitizing"] + 1
+    # one launch, of the sanitizing instantiation: it left a kernel buffer
+    assert grmac_matmul_cuda.launches == before + 1
+    assert [p[3] for p in sanitize._PENDING] == [True]
     kern = _pending_stats(0)
     i = len(sanitize._PENDING)
     want = grmac_matmul(x, w, backend="ref", tag="k", **kw)
@@ -914,10 +918,10 @@ def test_sanitizer_through_cim_matmul_on_the_card(monkeypatch):
         pw = pack_weight(w, cfg.fmt_w, cfg.n_r)
         monkeypatch.delenv(sanitize.ENV_VAR, raising=False)
         sanitize.clear()
-        before = dict(grmac_matmul_cuda.launches_by_instantiation)
+        before = grmac_matmul_cuda.launches
         clean = cim_matmul(x, pw, cfg, site="mlp")
-        assert grmac_matmul_cuda.launches_by_instantiation == {
-            **before, "plain": before["plain"] + 1}
+        # one launch, of the plain instantiation: it left no buffer
+        assert grmac_matmul_cuda.launches == before + 1
         assert sanitize._PENDING == []
         monkeypatch.setenv(sanitize.ENV_VAR, "1")
         for xin in (x, x.clone().index_fill_(0, torch.tensor(
@@ -935,3 +939,43 @@ def test_sanitizer_through_cim_matmul_on_the_card(monkeypatch):
                                    "count": m * 24 * 320,
                                    "worst": float("inf")}
     sanitize.clear()
+
+
+@pytest.mark.gpu
+def test_train_step_scopes_on_the_card():
+    """A profiled train step on the card (paper-cim-120m reduced, remat):
+    the per-call packing is ``cim.pack`` under its site marker, in
+    ``train.forward`` on the calling thread and, in remat's recomputation,
+    on autograd's device thread with a stack of its own."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.training.optimizer import (OptimizerConfig,
+                                                init_opt_state)
+    from repro_torch.training.trainer import TrainConfig, make_train_step
+
+    arch = get_config("paper-cim-120m").reduced().replace(remat=True)
+    params = init_params(arch, 0, device="cuda")
+    step = make_train_step(arch, TrainConfig(opt=OptimizerConfig()))
+    ids = torch.randint(1, arch.vocab_size, (2, 9), device="cuda")
+    batch = {"inputs": ids[:, :-1], "labels": ids[:, 1:]}
+    step(params, init_opt_state(params, OptimizerConfig()), batch)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(params, init_opt_state(params, OptimizerConfig()), batch)
+        torch.cuda.synchronize()
+    cpu = torch.autograd.DeviceType.CPU
+    threads = {}              # the outermost scope of each cim.pack
+    for e in prof.events():
+        if e.device_type == cpu and e.name == "cim.pack":
+            chain, p = [], e.cpu_parent
+            while p is not None:
+                if p.is_user_annotation:
+                    chain.insert(0, p.name)
+                p = p.cpu_parent
+            assert re.fullmatch(r"cim_\w+_m\d+_k\d+_n\d+", chain[-1])
+            threads.setdefault(chain[0], set()).add(e.thread)
+    assert set(threads) == {"train.forward", "model.layer"}, threads
+    assert not threads["train.forward"] & threads["model.layer"]
