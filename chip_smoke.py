@@ -45,8 +45,11 @@ seconds:
 5. serve    one path per model, each from seeded random weights with every
             projection through GR-MAC row (FP6_E3M2 x FP4_E2M1, n_r 32,
             ENOB 8), 8 slots of greedy traffic, the launch counts set to 0
-            just before and read just after (they must be the model's
-            projections per forward times its dispatches):
+            just before the engine is built and read just after (they
+            must be the model's projections per forward times its eager
+            dispatches and its graphs' warm-ups and captures; a dispatch
+            replayed from a CUDA graph launches nothing from the host,
+            ``host_launches``):
               serve              paper-cim-120m, full width and depth,
                                  32 decode steps (85 launches a forward);
               serve_gemma3       gemma3-1b, full width and depth (183),
@@ -66,8 +69,11 @@ seconds:
                                  expert's capacity, and the kernel and the
                                  plain version must drop the same number;
             then, for each path: a profile of three more decode steps
-            (device idle share, CUDA launches per step, which must equal
-            ``STEP_LAUNCHES``, top kernels and host operators); the same traffic through the plain version
+            and a prefill dispatch (device idle share, CUDA launches per
+            step, which must equal ``STEP_LAUNCHES``, the GR-MAC kernels
+            run on the card, which must be the projections per forward
+            times the dispatches, replayed or eager, top kernels and host
+            operators); the same traffic through the plain version
             on the card (``cim_backend="ref"``), whose token streams must
             be identical; and the model's reduced config (drawn on the
             CPU, moved to the card) on the CPU and on the card, whose
@@ -84,17 +90,20 @@ seconds:
             prompts, at 1.5x capacity), run 2 closed-loop at 8 clients,
             sampled (seeded, keyed and two greedy lanes); each through the
             kernel and the plain version, whose streams and policy-clock
-            metrics must be equal, with 85 launches a dispatch and one
-            fetch a decode step and a first token; run 1 must preempt and
+            metrics must be equal, with 85 launches an eager dispatch
+            (none a replayed one) and one fetch a decode step and a first
+            token; run 1 must preempt and
             hit the prefix cache; pJ/token equal to ``serve_energy``'s;
             then a profile of three sampled decode steps
-            (``serve_sampled`` in ``STEP_LAUNCHES``);
+            (``serve_sampled`` in ``STEP_LAUNCHES``, 85 GR-MAC kernels a
+            step on the card);
 5c. serve_spec  paper-cim-120m's weights under speculative decode
             (``SpecDecoder``, k 4, the digital drafter; ``serve``'s 8
             prompts, 6 greedy lanes and 2 seeded sampled ones), through
             the kernel and the plain version: equal streams and counters
             (spec steps and tokens, draft / verify / repair dispatches,
-            fetches), the kernel launched 85 times a prefill and a verify;
+            fetches), the kernel launched 85 times an eager prefill,
+            verify or repair (none a replayed one);
             accepted tokens, wall ms and launches per spec step (the
             latter equal to ``STEP_LAUNCHES``), and ``price_speculation``;
             with the CIM path off, greedy speculative streams equal to
@@ -138,8 +147,9 @@ seconds:
             in GR-MAC mode (weights drawn on the CPU, moved) and
             ``InstrumentedEngine`` over ``serve``'s traffic at full width:
             one fetch a step and a first token, device->host crossings
-            equal to the fetches, one signature (85 GR-MAC calls) per
-            dispatch key. The ``timing`` phase also times one paper-cim
+            equal to the fetches, one signature per dispatch key, every
+            dispatch replayed from its graph (no GR-MAC launch from the
+            host). The ``timing`` phase also times one paper-cim
             forward's launches through the plain and the sanitizing
             instantiation in turns (``timing_sanitizing``, M = 8 and 512);
 5f. train_drill  after the analysis: ``python -m repro_torch.launch.train
@@ -158,7 +168,8 @@ seconds:
             useful token;
     launch_serve  ``python -m repro_torch.launch.serve --arch paper-cim-120m
             --slots 8 --ctx 512`` through its ``main``, as the two-prompt
-            demo and with ``--traffic 16``: 85 kernel launches a dispatch,
+            demo and with ``--traffic 16``: 85 kernel launches an eager
+            dispatch and a graph's warm-up and capture (``host_launches``),
             pJ/token within ``MC_TOL`` of ``serve_energy``'s;
 5g. spmd_serve  after the analysis: ``serve``'s traffic under
             ``local_mesh()`` (a 1 x 1 NCCL mesh), the SPMD serving program
@@ -189,7 +200,8 @@ seconds:
             (H100 data-sheet model outputs);
     examples  the five ``repro_torch.examples`` through their ``main`` on
             the card with short arguments: ``serve_decode`` (paper-cim-120m
-            at full width) 85 kernel launches a dispatch, ``train_lm``
+            at full width) 85 kernel launches as ``host_launches`` counts
+            them, ``train_lm``
             (``--cim grmac``, 8 x 256, 2 steps) 169 a step;
 6. forward_musicgen  musicgen-medium (embedding inputs, GELU MLP) at full
             width and depth: seeded (8, S, 1536) embeddings through
@@ -251,18 +263,28 @@ MC_TOL = {"enob_uniform_16384": 0.0782, "enob_outliers_16384": 0.260,
 
 # CUDA launches a decode step of each serve path (grok's at its cut of 4
 # layers) as counted before the energy model's hooks: they must add none.
-# serve_sampled: paper-cim-120m's step with 6 of 8 lanes sampling, the
-# greedy 1011 less the argmax and its cast (2), plus the sampler's 41: 29
-# for the counter hash over the (8, 32 000) tile, 12 for the Gumbel-max
-# and the per-lane choice. serve_spec: a speculative step of paper-cim-120m
-# (k 4, the digital drafter, 2 of 8 lanes sampled): three draft dispatches
-# of 1009 (a decode step whose 85 projections are cuBLAS GEMMs, not an
-# absmax reduction and a GR-MAC launch each) and one sampled verify of 1144
-# (the chunked prefill over the 8-token bucket and the rejection rule on
-# the device); 3 x 1009 + 1144 = 4171, each part profiled alone
-STEP_LAUNCHES = {"serve": 1011, "serve_gemma3": 3008, "serve_mamba2": 3383,
+# serve and serve_gemma3 replay their decode forward from a CUDA graph
+# (``serving.graphs``; one cudaGraphLaunch, not a kernel launch): the step
+# launches the argmax and its cast (2); eager, they launched 1011 and 3008.
+# The same profile counts the GR-MAC kernels the replay ran on the card.
+# serve_sampled: paper-cim-120m's replayed step with 6 of 8 lanes
+# sampling, the sampler's 41: 29 for the counter hash over the (8, 32 000)
+# tile, 12 for the Gumbel-max and the per-lane choice (eager: 1050).
+# mamba2, recurrentgemma and grok stay eager (recurrent blocks, MoE).
+# serve_spec: a speculative step of paper-cim-120m (k 4, the digital
+# drafter, 2 of 8 lanes sampled), eager: three draft dispatches of 1009 (a
+# decode step of another arch, whose 85 projections are cuBLAS GEMMs, not
+# an absmax reduction and a GR-MAC launch each) and one sampled verify of
+# 1144 (the chunked prefill over the 8-token bucket and the rejection rule
+# on the device); 3 x 1009 + 1144 = 4171, each part profiled alone
+STEP_LAUNCHES = {"serve": 2, "serve_gemma3": 2, "serve_mamba2": 3383,
                  "serve_recurrentgemma": 298, "serve_grok": 608,
-                 "serve_sampled": 1050, "serve_spec": 4171}
+                 "serve_sampled": 41, "serve_spec": 4171}
+# Profiles of one count of GR-MAC kernels on the card at most
+# (``grmac_on_card_of``): the profiler drops a device record now and then
+# (4 of 9207 in one of six profiles of three replayed gemma3-1b decode
+# steps, H100 80GB HBM3 at 700 W)
+PROFILE_TRIES = 3
 # Gradients of one train step through the kernel against the plain version:
 # their forwards are bitwise equal, the backward is the same plain torch, so
 # any difference is the card's summation order; bound per tensor, relative
@@ -439,6 +461,19 @@ def grmac_per_forward(arch) -> int:
     some off)."""
     return sum(p[3] for p in projections(arch)
                if arch.cim.for_site(_site(p[0])).mode == "grmac")
+
+
+def host_launches(fwd: int, dispatches: int, graph_stats: dict,
+                  built: bool = True) -> int:
+    """The kernel's launches the host counts for ``dispatches`` forwards
+    of an engine's served arch, ``fwd`` launches each. A dispatch replayed
+    from a CUDA graph launches none: ``profiled`` counts its kernels on
+    the card. Counted from before the engine was built (``built``), each
+    graph's warm-ups and capture launch ``WARMUP + 1`` forwards."""
+    from repro_torch.serving.graphs import WARMUP
+
+    eager = dispatches - graph_stats["replays"]
+    return fwd * (eager + (WARMUP + 1) * graph_stats["captures"] * built)
 
 
 def grok_depth(arch) -> int:
@@ -769,9 +804,10 @@ def roofline_card_phase(arch, card: str, measured_ms: dict) -> None:
 def examples_phase(card: str, reset_counts) -> dict:
     """The five examples through their ``main`` on the card, short
     arguments, their output captured, the counts set to 0 before each:
-    ``serve_decode`` (paper-cim-120m at full width) 85 GR-MAC launches a
-    dispatch, ``train_lm`` (``--cim grmac``, 8 x 256) 169 a step. Returns
-    the launches by example."""
+    ``serve_decode`` (paper-cim-120m at full width) 85 GR-MAC launches an
+    eager dispatch and a graph's warm-up and capture, ``train_lm``
+    (``--cim grmac``, 8 x 256) 169 a step. Returns the launches by
+    example."""
     import shutil
 
     from repro_torch.examples import (design_explorer, quickstart,
@@ -798,8 +834,9 @@ def examples_phase(card: str, reset_counts) -> dict:
             launches[name] = n
             want = None
             if name == "serve_decode":
-                want = 85 * (res.stats["prefill_dispatches"]
-                             + res.stats["decode_steps"])
+                want = host_launches(85, res.stats["prefill_dispatches"]
+                                     + res.stats["decode_steps"],
+                                     res.graph_stats)
             elif name == "train_lm":
                 want = 169 * 2
             emit({"phase": "examples", "example": name, "argv": argv,
@@ -1371,17 +1408,55 @@ def main() -> int:
     seconds("timing")
 
     # -------------------------------------------------------------- serve
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
 
-    def profiled(path, what, fn, count):
+    def grmac_on_card_of(fn, grmac):
+        """(GR-MAC kernels that ``fn``'s dispatches ran on the card, as the
+        profiler sees them, replays of CUDA graphs included; the rise of
+        ``grmac``, a reading of the kernels the dispatches so far should
+        have run, across ``fn``; profiles taken). In one profiling session
+        ``fn`` runs twice and only the second run counts: the profiler
+        can miss the first records of a graph's first replay in a session
+        (3 of gemma3-1b's 183 GR-MAC kernels, each session, late in the
+        run). A count below is profiled again, up to ``PROFILE_TRIES``
+        times: the profiler drops a record now and then, never adds
+        one."""
+        cuda = torch.autograd.DeviceType.CUDA
+        for tries in range(1, PROFILE_TRIES + 1):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+                time.sleep(0.01)
+                before = grmac()
+                with record_function("chip_smoke.counted"):
+                    fn()
+                torch.cuda.synchronize()
+            want = grmac() - before
+            events = prof.events()
+            mark = min(e.time_range.start for e in events
+                       if e.name == "chip_smoke.counted"
+                       and e.device_type != cuda)
+            ran = sum(1 for e in events if e.device_type == cuda
+                      and not e.is_user_annotation and "grmac" in e.name
+                      and e.time_range.start >= mark)
+            if ran >= want:
+                break
+        return ran, want, tries
+
+    def profiled(path, what, fn, count, grmac=None):
         """``fn`` under torch.profiler: the device's busy share of the wall
         time, CUDA launches per ``count`` (steps or dispatches) and the
         top kernels and host operators; a decode or speculative step's
-        launches must equal ``STEP_LAUNCHES[path]``. Returns the line."""
+        launches must equal ``STEP_LAUNCHES[path]``. Where ``grmac`` is
+        given (``grmac_on_card_of``), the GR-MAC kernels that ``fn``'s
+        dispatches ran on the card must be the ones they should have run,
+        replayed or eager. Returns the line."""
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1399,6 +1474,14 @@ def main() -> int:
         launch_calls = sum(e.count for e in events
                            if e.key.startswith(("cudaLaunchKernel",
                                                 "cuLaunchKernel")))
+        grmac_ran = grmac_want = tries = None
+        if grmac is not None:
+            grmac_ran, grmac_want, tries = grmac_on_card_of(fn, grmac)
+            grmac_on_card[path] = grmac_on_card.get(path, 0) + grmac_ran
+            if grmac_ran != grmac_want:
+                fail(f"{path}: {grmac_ran} GR-MAC kernels ran on the card "
+                     f"in {count} x {what}, not {grmac_want} ({tries} "
+                     "profiles)")
         top_dev = sorted(kernels, key=dev_us, reverse=True)[:12]
         top_cpu = sorted(events, key=lambda e: e.self_cpu_time_total,
                          reverse=True)[:12]
@@ -1414,6 +1497,8 @@ def main() -> int:
               else None,
               "cuda_launches_per": launch_calls / count,
               "expected_launches_per": want,
+              "grmac_kernels": grmac_ran,
+              "expected_grmac_kernels": grmac_want, "profiles": tries,
               "device_ops_per": sum(e.count for e in kernels) / count,
               "top_device": [(e.key, e.count, dev_us(e)) for e in top_dev],
               "top_cpu_self": [(e.key, e.count, e.self_cpu_time_total)
@@ -1424,18 +1509,29 @@ def main() -> int:
 
     def profile_path(path, engine, arch, bucket):
         """Three more decode steps, then one full-bucket prefill dispatch
-        into a freed slot (the recurrences' per-token loop shows there)."""
+        into a freed slot (the recurrences' per-token loop shows there);
+        each forward ran ``per_forward`` GR-MAC kernels on the card,
+        replayed or eager."""
+        def dispatches():
+            return (engine.stats["prefill_dispatches"]
+                    + engine.stats["decode_steps"])
+
         def steps():
             for _ in range(3):
                 engine.step()
 
+        # one prompt, drawn once: ``profiled`` may run ``prefill`` again,
+        # and the later phases' draws from ``rng`` stay where they were
+        prompt = [int(t) for t in rng.integers(0, arch.vocab_size, bucket)]
+
         def prefill():
             engine.release_slot(0)
-            engine.add_request([int(t) for t in
-                                rng.integers(0, arch.vocab_size, bucket)])
+            engine.add_request(prompt)
 
-        profiled(path, "decode_step", steps, 3)
-        profiled(path, f"prefill_dispatch_of_{bucket}_tokens", prefill, 1)
+        profiled(path, "decode_step", steps, 3,
+                 grmac=lambda: per_forward(arch) * dispatches())
+        profiled(path, f"prefill_dispatch_of_{bucket}_tokens", prefill, 1,
+                 grmac=lambda: per_forward(arch) * dispatches())
 
     def run_engine(arch, params, prompts, n_steps, serve_kw, backend):
         engine = Engine(arch, params, ServeConfig(
@@ -1458,6 +1554,9 @@ def main() -> int:
                 torch.cuda.max_memory_allocated(), last)
 
     launches_by_path = {}
+    # GR-MAC kernels run on the card in each path's profiles, counted by
+    # the profiler (a graph replay's too, which the host does not launch)
+    grmac_on_card = {}
     served_streams = {}       # each serve path's streams, before its profile
     by_design_total = dict.fromkeys(DESIGNS, 0)
     step_median = {}          # decode step median ms of each serve path
@@ -1484,10 +1583,11 @@ def main() -> int:
     def serve_path(path, arch, params, prompts, n_steps, serve_kw,
                    extra=None, keep_engine=False):
         """Serve ``prompts`` and ``n_steps`` greedy steps through the
-        kernel with the counts set to 0 just before and read just after,
-        profile, then the same traffic through the plain version: the
-        streams must be identical. Returns the kernel's engine and its last
-        step result if asked (else Nones)."""
+        kernel with the counts set to 0 just before the engine is built
+        and read just after (``host_launches``), profile, then the same
+        traffic through the plain version: the streams must be identical.
+        Returns the kernel's engine and its last step result if asked
+        (else Nones)."""
         v = arch.vocab_size
         fwd = per_forward(arch)
         reset_counts()
@@ -1503,24 +1603,26 @@ def main() -> int:
             by_design_total[d] += by_design[d]
         dispatches = (engine.stats["prefill_dispatches"]
                       + engine.stats["decode_steps"])
+        want = host_launches(fwd, dispatches, engine.graph_stats)
         streams = [list(t) for t in engine.tokens]
         served_streams[path] = streams
         emit({"phase": path, "arch": arch.name, "batch_slots": SLOTS,
               **serve_kw, **(extra or {}),
               "prompt_lens": [len(p) for p in prompts],
-              "stats": engine.stats, "kernel_launches": launches,
+              "stats": engine.stats, "graph_stats": engine.graph_stats,
+              "kernel_launches": launches,
               "kernel_launches_by_design": by_design,
               "launches_per_forward": fwd,
-              "expected_launches": fwd * dispatches,
+              "expected_launches": want,
               "prefill_ms": prefill_ms, "decode_ms": decode_ms,
               "decode_ms_median": float(np.median(decode_ms)),
               "decode_tok_s_median": SLOTS * 1e3 / float(np.median(
                   decode_ms)),
               "peak_mem_bytes": peak, "moe_dropped_assignments": dropped,
               "card": card})
-        if launches != fwd * dispatches:
+        if launches != want:
             fail(f"{path}: {launches} kernel launches for {dispatches} "
-                 f"dispatches (expected {fwd} each)")
+                 f"dispatches and {engine.graph_stats} (expected {want})")
         if any(len(s) != len(p) + 1 + n_steps
                for s, p in zip(streams, prompts)):
             fail(f"{path}: a request did not emit 1 + n_steps tokens")
@@ -1748,6 +1850,10 @@ def main() -> int:
                 m = sched.metrics(slo_ttft=80.0)
                 dispatches = (eng.stats["prefill_dispatches"]
                               + eng.stats["decode_steps"])
+                # counted from after the engine was built
+                want = (host_launches(fwd, dispatches, eng.graph_stats,
+                                      built=False)
+                        if backend is None else 0)
                 out[backend] = (sched, eng, seen, m, dispatches)
                 emit({"phase": "serve_scheduler", "run": run,
                       "backend": backend or "kernel", "arch": arch.name,
@@ -1758,17 +1864,16 @@ def main() -> int:
                       "scheduler_steps": seen["steps"],
                       "dispatches": dispatches,
                       "engine_stats": eng.stats,
+                      "graph_stats": eng.graph_stats,
                       "kernel_launches": seen["launches"],
-                      "expected_launches": (fwd * dispatches if backend
-                                            is None else 0),
+                      "expected_launches": want,
                       "fetches": seen["fetch"],
                       "first_token_selections": seen["first"],
                       "wall_s": seen["wall_s"],
                       "wall_ms_per_dispatch":
                           1e3 * seen["wall_s"] / dispatches,
                       "metrics_slo_ttft_80": m, "card": card})
-                if seen["launches"] != (fwd * dispatches if backend is None
-                                        else 0):
+                if seen["launches"] != want:
                     fail(f"serve_scheduler {run}: {seen['launches']} kernel "
                          f"launches for {dispatches} dispatches")
                 if seen["fetch"] != (eng.stats["decode_steps"]
@@ -1812,7 +1917,8 @@ def main() -> int:
                         SamplingParams(temperature=0.8 * (i < 6),
                                        seed=i if i < 4 else None)))
                 profiled("serve_sampled", "decode_step", lambda: [
-                    eng.step(sampling.key(100 + s)) for s in range(3)], 3)
+                    eng.step(sampling.key(100 + s)) for s in range(3)], 3,
+                    grmac=lambda: fwd * eng.stats["decode_steps"])
             del out, k_sched, k_eng, r_sched
             gc.collect()
             torch.cuda.empty_cache()
@@ -1829,7 +1935,7 @@ def main() -> int:
                    for n in (5, 3)]
         fwd = per_forward(arch)
         reset_counts()
-        runs, dispatches = {}, 0
+        runs, dispatches, want = {}, 0, 0
         for cache in (None, 1 << 28):
             eng = Engine(arch, params, ServeConfig(
                 batch_slots=SLOTS, prefix_cache_bytes=cache, **serve_kw),
@@ -1849,8 +1955,9 @@ def main() -> int:
                     eng.step()
                 streams.append(eng.tokens[slot][len(p):])
                 eng.release_slot(slot)
-            dispatches += (eng.stats["prefill_dispatches"]
-                           + eng.stats["decode_steps"])
+            n = eng.stats["prefill_dispatches"] + eng.stats["decode_steps"]
+            dispatches += n
+            want += host_launches(fwd, n, eng.graph_stats)
             runs[cache] = dict(streams=streams, adopted=adopted,
                                prefill_ms=prefill_ms,
                                prefill_tokens=eng.stats["prefill_tokens"],
@@ -1871,12 +1978,12 @@ def main() -> int:
               "hit_prefill_tokens": warm["prefill_tokens"],
               "cache_stats": warm["cache_stats"],
               "kernel_launches": launches,
-              "expected_launches": fwd * dispatches, "card": card})
+              "expected_launches": want, "card": card})
         if not same or warm["adopted"] != [0, shared]:
             fail(f"{path}: a prefix hit's stream differs from a cold "
                  f"prefill's, or it adopted {warm['adopted']} tokens, not "
                  f"[0, {shared}]")
-        if launches != fwd * dispatches:
+        if launches != want:
             fail(f"{path}_prefix_hit: {launches} kernel launches for "
                  f"{dispatches} dispatches")
         gc.collect()
@@ -1921,20 +2028,26 @@ def main() -> int:
                 eng.add_request(p, params=sp)
             dec = SpecDecoder(eng, SpecConfig(k=4, draft="digital"))
             step_ms = []
+            spec_launches = grmac_matmul_cuda.launches
             for _ in range(n_steps):
                 t0 = time.perf_counter()
                 dec.step()
                 torch.cuda.synchronize()
                 step_ms.append(1e3 * (time.perf_counter() - t0))
+            spec_launches = grmac_matmul_cuda.launches - spec_launches
             st = dict(eng.stats)
             runs[backend] = dict(
                 eng=eng, dec=dec, stats=st, fetches=seen["fetch"],
-                launches=grmac_matmul_cuda.launches, step_ms=step_ms,
+                launches=grmac_matmul_cuda.launches,
+                spec_launches=spec_launches, step_ms=step_ms,
                 peak=torch.cuda.max_memory_allocated(),
                 streams=[list(t) for t in eng.tokens])
-            want = (fwd * (st["prefill_dispatches"] + st["decode_steps"]
-                           + st["verify_dispatches"]
-                           + st["repair_dispatches"])
+            # replays (the prefills, greedy repairs) launch nothing on the
+            # host; the drafter's arch and the sampled verify run eagerly
+            want = (host_launches(fwd, st["prefill_dispatches"]
+                                  + st["decode_steps"]
+                                  + st["verify_dispatches"]
+                                  + st["repair_dispatches"], eng.graph_stats)
                     + grmac_per_forward(dec.draft_arch)
                     * st["draft_dispatches"]) if backend is None else 0
             fetch_want = (SLOTS + st["draft_dispatches"]
@@ -1947,6 +2060,7 @@ def main() -> int:
                       st["spec_tokens"] / st["spec_steps"],
                   "accepted_tokens_per_lane_step":
                       st["spec_tokens"] / st["spec_steps"] / SLOTS,
+                  "graph_stats": eng.graph_stats,
                   "fetches": seen["fetch"], "expected_fetches": fetch_want,
                   "kernel_launches": grmac_matmul_cuda.launches,
                   "expected_launches": want,
@@ -1966,8 +2080,7 @@ def main() -> int:
         eng, dec = k["eng"], k["dec"]
         price = price_speculation(arch, dec.draft_arch, k["stats"],
                                   eng._bucket(4), device=dev)
-        verify_launches = (k["launches"] - fwd * k["stats"][
-            "prefill_dispatches"]) / k["stats"]["spec_steps"]
+        verify_launches = k["spec_launches"] / k["stats"]["spec_steps"]
         emit({"phase": "serve_spec_oracle", "streams_equal":
               k["streams"] == r["streams"], "counters_equal":
               k["stats"] == r["stats"] and k["fetches"] == r["fetches"],
@@ -2486,8 +2599,11 @@ def main() -> int:
                 "verify_dispatches", "repair_dispatches"))
             pj_got = (res["engine_pj_per_token"] if mode == "demo"
                       else res["metrics"]["pj_per_token"])
+            graph_stats = res["engine_graph_stats"]
+            want = host_launches(fwd, dispatches, graph_stats)
             row = {"phase": "launch_serve", "mode": mode,
                    "kernel_launches": launches, "dispatches": dispatches,
+                   "graph_stats": graph_stats, "expected_launches": want,
                    "launches_per_dispatch": launches / max(dispatches, 1),
                    "pj_per_token": pj_got, "serve_energy_pj_per_token":
                    serve_pj, "pj_tolerance": MC_TOL["pj_per_token_2048"],
@@ -2502,7 +2618,7 @@ def main() -> int:
                 toks = [list(r.values()) for r in res["steps"]]
                 row["tokens_in_vocab"] = all(
                     0 <= int(t) < paper.vocab_size for ts in toks for t in ts)
-            row["ok"] = (launches == fwd * dispatches and dispatches > 0
+            row["ok"] = (launches == want and dispatches > 0
                          and abs(pj_got - serve_pj)
                          <= MC_TOL["pj_per_token_2048"]
                          and row.get("tokens_in_vocab", True)
@@ -2511,7 +2627,8 @@ def main() -> int:
             rows[mode] = row
             if not row["ok"]:
                 fail(f"launch_serve ({mode}): {launches} kernel launches "
-                     f"for {dispatches} dispatches ({fwd} each), pJ/token "
+                     f"for {dispatches} dispatches and {graph_stats} (want "
+                     f"{want}), pJ/token "
                      f"{pj_got} against serve_energy's {serve_pj}")
             del res
             gc.collect()
@@ -2840,13 +2957,17 @@ def main() -> int:
             torch.cuda.synchronize()
             step_ms.append(1e3 * (time.perf_counter() - t1))
         rep = eng.check()
-        fwd = per_forward(arch)
+        # a dispatch replayed from its graph launches no GR-MAC kernel
+        # from the host; at these shapes every dispatch replays
+        calls = 0 if eng.graph_stats["captures"] else per_forward(arch)
         ok = (rep["fetches"] == len(prompts) + 32
               and rep["d2h"] == rep["fetches"]
-              and all(sig[0] == fwd for sig in rep["signatures"].values()))
+              and eng.graph_stats["replays"] == (
+                  sum(rep["traces"].values()) if calls == 0 else 0)
+              and all(sig[0] == calls for sig in rep["signatures"].values()))
         emit({"phase": "analysis_invariants", "drives": drives,
               "drives_seconds": drives_s, "full_width": {
-                  "arch": arch.name, **rep,
+                  "arch": arch.name, **rep, "graph_stats": eng.graph_stats,
                   "step_ms_median_instrumented": float(np.median(step_ms))},
               "ok": ok, "card": card})
         if not ok:
@@ -3134,8 +3255,12 @@ def main() -> int:
         "replaces": "src/repro/kernels/grmac_matmul.py:169",
         "tpu_source": "src/repro/kernels/grmac_matmul.py:169",
         "port_source": "src/repro_torch/csrc/grmac_matmul.cu",
+        # the host's launches (a CUDA graph's warm-ups and capture, never
+        # its replays); the kernels that ran on the card in each path's
+        # profiles, replays included, as the profiler counts them
         "launches": sum(launches_by_path.values()),
         "launches_by_path": launches_by_path,
+        "profiled_on_card_by_path": grmac_on_card,
         "max_abs_err": max_abs_err,
         "checked_vs_plain": True,
         "launches_by_design": by_design_total,

@@ -69,7 +69,8 @@ def _serve_traffic(arch, params, args) -> dict:
               f"({m['energy_pj'] / 1e6:.2f} uJ total decode)")
     return {"mode": "traffic", "metrics": m, "wall_s": wall,
             "streams": {r.rid: list(r.generated) for r in sched.finished},
-            "engine_stats": dict(eng.stats)}
+            "engine_stats": dict(eng.stats),
+            "engine_graph_stats": dict(eng.graph_stats)}
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -148,7 +149,8 @@ def main(argv: Optional[Sequence[str]] = None,
         if i % 8 == 0:
             print(f"step {i}: {fmt(out)}")
     result = {"mode": "demo", "steps": steps,
-              "engine_stats": dict(eng.stats)}
+              "engine_stats": dict(eng.stats),
+              "engine_graph_stats": dict(eng.graph_stats)}
     if arch.cim.enabled:
         # ledger-derived, per phase: the serving deployment metric next to
         # the serving stats (decode aliases at top level)

@@ -95,6 +95,19 @@ device→host transfer through ``_fetch``. Both are plain calls here, each
 in a scope of its own (``core.scopes``: ``engine.<key>``,
 ``engine.fetch``); ``analysis.invariants.InstrumentedEngine`` counts at
 them.
+
+CUDA graphs (``serving.graphs``): where ``graphs.applies`` (a card, no
+mesh, the sanitizer off, attention blocks only, a dense FFN, a vocabulary
+that fills its padded width, the kernel's route), the engine captures at construction the served arch's decode
+forward and its ``prefill_step`` at every bucket a prompt under
+``max_ctx`` can need, and replays them inside the same dispatches (the
+decode forward under ``decode[…]`` — the step's, the "self" drafter's, a
+token-mode prefill's —, a chunk, a greedy verify and a repair under
+``prefill[bucket=…]``; one key, one executable). Token selection and
+``_fetch`` stay eager. Every other dispatch, and every dispatch while a
+mesh is active or the sanitizer is on, runs eagerly as before.
+``graph_stats["captures"]`` counts the captures, ``["replays"]`` the
+replays.
 """
 from __future__ import annotations
 
@@ -111,7 +124,7 @@ from repro_torch.core.device import require_full_f32, resolve_device
 from repro_torch.core.scopes import named_scope
 from repro_torch.models import (decode_step, forward, init_cache,
                                 pack_params, prefill_step)
-from repro_torch.serving import sampling
+from repro_torch.serving import graphs, sampling
 from repro_torch.serving.params import RequestOutput, SamplingParams
 from repro_torch.serving.prefix_cache import (PrefixCache, restore_slot,
                                               snapshot_slot)
@@ -240,6 +253,15 @@ class Engine:
                       "spec_tokens": 0}
         # the decode-phase energy report, priced on first request
         self._energy: Optional[dict] = None
+        # dispatch name ("decode", "prefill[bucket=…]") -> its CUDA graph,
+        # and the cache tensors they were captured on; the port's own
+        # counters of them, beside ``stats`` (which the reference's engine
+        # keeps key for key)
+        self._graphs: Dict[str, graphs.DispatchGraph] = {}
+        self._graph_leaves: tuple = ()
+        self.graph_stats = {"captures": 0, "replays": 0}
+        if graphs.applies(arch, self.device):
+            self._capture_graphs()
 
     @staticmethod
     def _prepared(params: dict, arch: ArchConfig) -> dict:
@@ -254,6 +276,56 @@ class Engine:
         invariant harness counts at), in the scope ``engine.<key>``."""
         with named_scope(f"engine.{key}"):
             return fn(*args)
+
+    # ------------------------------------------------------------ graphs
+    def _capture_graphs(self) -> None:
+        """Capture the served arch's decode forward and, under bucketed
+        prefill, its ``prefill_step`` at every bucket from the least up to
+        the one a chunk of ``min(prefill_bucket_max, max_ctx - 1)`` tokens
+        takes, on inputs that freeze every lane; one memory pool."""
+        b, dev = self.cfg.batch_slots, self.device
+        index_dtype = torch.from_numpy(self.lengths).dtype
+        pool = torch.cuda.graph_pool_handle()
+
+        def decode(toks, index, active):
+            return decode_step(self.params, toks, self.arch, self.cache,
+                               index, active=active)[:1]
+
+        def prefill(toks, index, lens):
+            return prefill_step(self.params, toks, self.arch, self.cache,
+                                index, lens)[:2]
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        self._graphs["decode"] = graphs.DispatchGraph(
+            decode, (zeros(b, 1), zeros(b, dtype=index_dtype),
+                     zeros(b, dtype=torch.bool)), pool)
+        if self.cfg.prefill_mode == "bucketed":
+            top = self._bucket(min(self.cfg.prefill_bucket_max,
+                                   self.cfg.max_ctx - 1))
+            bucket = self.cfg.prefill_bucket_min
+            while bucket <= top:
+                self._graphs[f"prefill[bucket={bucket}]"] = \
+                    graphs.DispatchGraph(prefill, (
+                        zeros(b, bucket), zeros(b, dtype=index_dtype),
+                        zeros(b)), pool)
+                bucket *= 2
+        self._graph_leaves = graphs.cache_leaves(self.cache)
+        self.graph_stats["captures"] = len(self._graphs)
+
+    def _graph(self, name: str) -> Optional[graphs.DispatchGraph]:
+        """The graph of dispatch ``name`` where the engine may replay it
+        now (``graphs.replayable``), else None."""
+        if self._graphs and graphs.replayable(self.cache,
+                                              self._graph_leaves):
+            return self._graphs.get(name)
+        return None
+
+    def _replay(self, graph: graphs.DispatchGraph, *host: np.ndarray):
+        """Replay ``graph`` on the host arrays ``host``; its outputs."""
+        self.graph_stats["replays"] += 1
+        return graph(*host)
 
     def _snapshot(self, host_state: np.ndarray) -> torch.Tensor:
         """A device copy of mutable per-slot host state. ``torch.tensor``
@@ -498,14 +570,31 @@ class Engine:
         toks[slot, :len(chunk)] = chunk
         lens = np.zeros(self.cfg.batch_slots, np.int64)
         lens[slot] = len(chunk)
-        logits, _, self.cache = self._dispatch(
-            f"prefill[bucket={bucket}]", prefill_step, self.params,
-            self._snapshot(toks), self.arch, self.cache,
-            self._snapshot(self.lengths), self._snapshot(lens))
+        logits, _ = self._prefill(toks, self.lengths, lens, keep=True)
         self.lengths[slot] += len(chunk)
         self.stats["prefill_dispatches"] += 1
         self.stats["prefill_tokens"] += len(chunk)
         return logits
+
+    def _prefill(self, toks: np.ndarray, index: np.ndarray,
+                 lens: np.ndarray, keep: bool = False):
+        """One ``prefill_step`` dispatch of the served arch: ``toks`` (B,
+        bucket) at cache offsets ``index``, ``lens`` valid tokens a lane
+        (0 freezes it). Returns the last valid token's logits (B, V) and
+        the greedy ids at every position (B, bucket), on the device; the
+        cache is written in place. Replayed from the bucket's graph where
+        there is one, whose buffers the next replay overwrites: ``keep``
+        returns the logits in a copy of their own."""
+        key = f"prefill[bucket={toks.shape[1]}]"
+        graph = self._graph(key)
+        if graph is not None:
+            logits, ids = self._dispatch(key, self._replay, graph, toks,
+                                         index, lens)
+            return (logits.clone() if keep else logits), ids
+        logits, ids, self.cache = self._dispatch(
+            key, prefill_step, self.params, self._snapshot(toks), self.arch,
+            self.cache, self._snapshot(index), self._snapshot(lens))
+        return logits, ids
 
     def _decode(self, toks: np.ndarray, mask: np.ndarray,
                 arch: Optional[ArchConfig] = None,
@@ -514,12 +603,16 @@ class Engine:
         served one) at cache offsets ``index`` (None: the lengths); lanes
         outside ``mask`` keep their caches. Returns the logits (B, V) on
         the device."""
+        index = self.lengths if index is None else index
+        graph = (self._graph("decode") if arch is None or arch is self.arch
+                 else None)
+        if graph is not None:
+            return self._replay(graph, toks.astype(np.int64), index,
+                                mask)[0]
         params = self.params if arch is None else self._draft_params_of(arch)
         logits, self.cache = decode_step(
             params, self._snapshot(toks.astype(np.int64)), arch or self.arch,
-            self.cache,
-            self._snapshot(self.lengths if index is None else index),
-            active=self._snapshot(mask))
+            self.cache, self._snapshot(index), active=self._snapshot(mask))
         return logits
 
     def _decode_choose(self, toks: np.ndarray, mask: np.ndarray,
@@ -658,12 +751,12 @@ class Engine:
         self.stats["draft_dispatches"] += 1
         return self._fetch(ids)
 
-    def _chunk_tokens(self, chunk: np.ndarray) -> torch.Tensor:
+    def _chunk_tokens(self, chunk: np.ndarray) -> np.ndarray:
         """``chunk`` (B, k) right-padded with zeros to its bucket."""
         b, k = chunk.shape
         toks = np.zeros((b, self._bucket(k)), np.int64)
         toks[:, :k] = chunk
-        return self._snapshot(toks)
+        return toks
 
     def verify_chunk(self, chunk: np.ndarray,
                      lens: np.ndarray) -> np.ndarray:
@@ -671,11 +764,8 @@ class Engine:
         d_1 .. d_{k-1}]``, ``lens`` valid entries, 0 freezes the lane)
         through the bucketed prefill: ``prefill_step``'s per-position argmax
         ids, (B, k), one fetch. Lengths are not committed here."""
-        toks = self._chunk_tokens(chunk)
-        _, ids, self.cache = self._dispatch(
-            f"prefill[bucket={toks.shape[1]}]", prefill_step, self.params,
-            toks, self.arch, self.cache, self._snapshot(self.lengths),
-            self._snapshot(lens.astype(np.int64)))
+        _, ids = self._prefill(self._chunk_tokens(chunk), self.lengths,
+                               lens.astype(np.int64))
         self.stats["verify_dispatches"] += 1
         return self._fetch(ids)[:, :chunk.shape[1]]
 
@@ -686,7 +776,7 @@ class Engine:
         greedy. Returns (emitted tokens (B, k), emitted counts (B,)) from
         one packed fetch."""
         k = chunk.shape[1]
-        toks = self._chunk_tokens(chunk)
+        toks = self._snapshot(self._chunk_tokens(chunk))
         eff = self._effective_temps(key)
         keys = sampling.lane_keys(key if key is not None else 0,
                                   self._seed, self._ctr)
@@ -758,13 +848,10 @@ class Engine:
         re-feed each one's accepted prefix (``lens[i]`` leading tokens of
         ``chunk``, 0: frozen) at its pre-verify offset ``index``. No fetch:
         acceptance already knows every token."""
-        toks = self._chunk_tokens(chunk)
         # the prefill dispatch of admission, on its index type
-        _, _, self.cache = self._dispatch(
-            f"prefill[bucket={toks.shape[1]}]", prefill_step, self.params,
-            toks, self.arch, self.cache,
-            self._snapshot(index.astype(self.lengths.dtype)),
-            self._snapshot(lens.astype(np.int64)))
+        self._prefill(self._chunk_tokens(chunk),
+                      index.astype(self.lengths.dtype),
+                      lens.astype(np.int64))
         self.stats["repair_dispatches"] += 1
 
     # ------------------------------------------------------------ energy

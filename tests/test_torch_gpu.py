@@ -47,6 +47,26 @@ def _need_card():
     require_full_f32()
 
 
+def _grmac_run(fn):
+    """``fn()`` under the profiler: (its result, the GR-MAC kernels that
+    ran on the card, replays of CUDA graphs included, and the launches the
+    host counted, ``grmac_matmul_cuda.launches``, which a replay adds
+    none to)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
+
+    host = grmac_matmul_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ran = sum(e.count for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation and "grmac" in e.key)
+    return out, ran, grmac_matmul_cuda.launches - host
+
+
 def _operands(gen, m, k, n, fmt_w):
     from repro_torch.core.formats import quantize
 
@@ -237,7 +257,6 @@ def test_tied_head_runs_through_the_kernel_and_matches_the_cpu():
 def test_engine_streams_through_the_kernel_equal_the_plain_version():
     _need_card()
     from repro_torch.configs import get_config
-    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
     from repro_torch.models import init_params
     from repro_torch.serving import Engine, ServeConfig
 
@@ -247,16 +266,19 @@ def test_engine_streams_through_the_kernel_equal_the_plain_version():
     for backend in (None, "ref"):
         eng = Engine(arch, params, ServeConfig(batch_slots=4, max_ctx=64,
                                                cim_backend=backend))
-        before = grmac_matmul_cuda.launches
-        for n in (5, 12, 33):
-            eng.add_request(list(range(1, n + 1)))
-        for _ in range(6):
-            eng.step()
-        launches = grmac_matmul_cuda.launches - before
+
+        def serve():
+            for n in (5, 12, 33):
+                eng.add_request(list(range(1, n + 1)))
+            for _ in range(6):
+                eng.step()
+        _, ran, launches = _grmac_run(serve)
         dispatches = (eng.stats["prefill_dispatches"]
                       + eng.stats["decode_steps"])
+        eager = dispatches - eng.graph_stats["replays"]
         per_forward = 7 * arch.n_layers + 1
-        assert launches == (per_forward * dispatches if backend is None else 0)
+        assert ran == (per_forward * dispatches if backend is None else 0)
+        assert launches == (per_forward * eager if backend is None else 0)
         streams.append([list(t) for t in eng.tokens])
     assert streams[0] == streams[1]
 
@@ -298,6 +320,117 @@ def test_cached_paths_on_the_card_agree_with_the_cpu():
     assert torch.equal(out["cpu"][2].argmax(-1), out["cuda"][2].argmax(-1))
 
 
+# ------------------------------------------------------------ CUDA graphs
+def _graph_checked_engine(arch, params, cfg):
+    """An engine whose every graph replay is held, bit for bit, to the
+    eager ``decode_step`` / ``prefill_step`` of the same host inputs on a
+    clone of the cache taken just before: the outputs and the caches
+    after. Returns (engine, [(graph replayed, GR-MAC kernels it ran on
+    the card, GR-MAC launches the host counted for it)] in order)."""
+    from repro_torch.models import decode_step, prefill_step
+    from repro_torch.serving import Engine
+
+    eng = Engine(arch, params, cfg)
+    names = {id(g): n for n, g in eng._graphs.items()}
+    replay, seen = eng._replay, []
+
+    def checked(graph, *host):
+        clone = {"layers": [{k: t.clone() for k, t in layer.items()}
+                            for layer in eng.cache["layers"]]}
+        out, ran, launches = _grmac_run(lambda: replay(graph, *host))
+        name = names[id(graph)]
+        seen.append((name, ran, launches))
+        args = [torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                for a in host]
+        if name == "decode":
+            want = decode_step(eng.params, args[0], eng.arch, clone,
+                               args[1], active=args[2])[:1]
+        else:
+            want = prefill_step(eng.params, args[0], eng.arch, clone,
+                                *args[1:])[:2]
+        assert len(out) == len(want)
+        for a, b in zip(out, want):
+            assert torch.equal(a, b), name
+        for mine, theirs in zip(eng.cache["layers"], clone["layers"]):
+            for k in mine:
+                assert torch.equal(mine[k], theirs[k]), (name, k)
+        return out
+
+    eng._replay = checked
+    return eng, seen
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["paper-cim-120m", "gemma3-1b"])
+def test_graph_replays_equal_the_eager_dispatches_bitwise(name):
+    """Admissions, chunked prefills over several buckets (a chunk of
+    gemma3's wraps its 64-slot rings), a request that finishes and frees
+    its slot, a prefix-cache hit admitted into it: every replayed decode
+    and chunk equals the eager dispatch on a clone of the cache, the
+    replays are the dispatches, and nothing is captured after
+    construction."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import SamplingParams, ServeConfig
+
+    arch = get_config(name).reduced()
+    arch = arch.replace(cim=arch.cim.with_mode("grmac"))
+    eng, seen = _graph_checked_engine(
+        arch, init_params(arch, seed=0), ServeConfig(
+            batch_slots=4, max_ctx=128, prefix_cache_bytes=1 << 26))
+    # decode and the buckets 8-128 (a prompt of up to 127 tokens)
+    assert list(eng._graphs) == ["decode"] + [
+        f"prefill[bucket={b}]" for b in (8, 16, 32, 64, 128)]
+    captures = eng.graph_stats["captures"]
+    assert captures == 6
+    rng = np.random.default_rng(1)
+    long = [int(t) for t in rng.integers(1, arch.vocab_size, 75)]
+    slot = eng.begin_request(long)
+    while eng.prefill_remaining(slot):
+        for m in (5, 24, 40):
+            if eng.prefill_remaining(slot):
+                eng.advance_prefill(slot, max_tokens=m)
+    eng.finish_prefill(slot)
+    short = eng.add_request([int(t) for t in rng.integers(1, 500, 9)],
+                            params=SamplingParams(max_tokens=3))
+    freed = []
+    for _ in range(4):
+        freed += eng.step().finished
+    assert short in freed and eng.free_slots() == 3
+    hit = eng.add_request(long[:64] + [7, 8, 9])
+    assert eng.adopted_prefix(hit) == 64
+    for _ in range(3):
+        eng.step()
+    dispatches = eng.stats["decode_steps"] + eng.stats["prefill_dispatches"]
+    assert eng.graph_stats["replays"] == dispatches == len(seen)
+    replayed = {n for n, _, _ in seen}
+    assert {f"prefill[bucket={b}]" for b in (8, 16, 32, 64)} <= replayed
+    assert "decode" in replayed
+    assert eng.graph_stats["captures"] == captures
+    # each replay runs a forward's kernels on the card, the host
+    # launching none of them
+    assert {(ran, host) for _, ran, host in seen} == {(_per_forward(arch), 0)}
+
+
+@pytest.mark.gpu
+def test_recurrent_and_moe_engines_stay_eager_on_the_card():
+    """mamba2's SSM blocks and grok's MoE: no capture, no replay."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    for name in ("mamba2-1.3b", "grok-1-314b"):
+        arch = get_config(name).reduced()
+        arch = arch.replace(cim=arch.cim.with_mode("grmac"))
+        eng = Engine(arch, init_params(arch, seed=0),
+                     ServeConfig(batch_slots=2, max_ctx=64))
+        eng.add_request([3, 1, 4, 1, 5])
+        eng.step()
+        assert eng.graph_stats == {"captures": 0, "replays": 0}, name
+
+
 # ------------------------------------------------------------ other blocks
 FAMILIES = ["gemma3-1b", "recurrentgemma-9b", "mamba2-1.3b", "grok-1-314b",
             "arctic-480b"]
@@ -326,7 +459,6 @@ def test_family_engine_streams_through_the_kernel_equal_the_plain_version(
     engines."""
     _need_card()
     from repro_torch.configs import get_config
-    from repro_torch.kernels.grmac_matmul import grmac_matmul_cuda
     from repro_torch.models import init_params
     from repro_torch.serving import Engine, ServeConfig
 
@@ -337,15 +469,19 @@ def test_family_engine_streams_through_the_kernel_equal_the_plain_version(
     for backend in (None, "ref"):
         eng = Engine(arch, params, ServeConfig(batch_slots=4, max_ctx=128,
                                                cim_backend=backend))
-        before = grmac_matmul_cuda.launches
-        for n in (5, 12, 70):
-            eng.add_request(list(range(1, n + 1)))
-        for _ in range(6):
-            eng.step()
-        launches = grmac_matmul_cuda.launches - before
+
+        def serve():
+            for n in (5, 12, 70):
+                eng.add_request(list(range(1, n + 1)))
+            for _ in range(6):
+                eng.step()
+        _, ran, launches = _grmac_run(serve)
         dispatches = (eng.stats["prefill_dispatches"]
                       + eng.stats["decode_steps"])
-        assert launches == (_per_forward(arch) * dispatches
+        eager = dispatches - eng.graph_stats["replays"]
+        assert ran == (_per_forward(arch) * dispatches
+                       if backend is None else 0)
+        assert launches == (_per_forward(arch) * eager
                             if backend is None else 0)
         streams.append([list(t) for t in eng.tokens])
     assert streams[0] == streams[1]
