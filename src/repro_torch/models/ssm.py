@@ -169,9 +169,10 @@ def ssm_decode(p, u: torch.Tensor, cfg: ArchConfig,
         raise ValueError(f"decode takes one token per lane, got S={s}")
     z, x, bmat, cmat, dt = _project(p, u, cfg)
     d_skip, kernel, a_rate = _step_params(p, cfg)
-    h_new, win_new, y = _recurrence_step(
-        d_skip, cfg.ssm_headdim, kernel, a_rate, state["h"], state["conv"],
-        x[:, 0], bmat[:, 0], cmat[:, 0], dt[:, 0])
+    with named_scope("ssm.step"):
+        h_new, win_new, y = _recurrence_step(
+            d_skip, cfg.ssm_headdim, kernel, a_rate, state["h"],
+            state["conv"], x[:, 0], bmat[:, 0], cmat[:, 0], dt[:, 0])
     out = _out(p, y.reshape(b, 1, -1), z, u, cfg)
     return out, {"h": h_new, "conv": win_new}
 
@@ -191,13 +192,15 @@ def ssm_prefill(p, u: torch.Tensor, cfg: ArchConfig, state: dict,
     valid = torch.arange(s, device=u.device)[None, :] < length[:, None]
     h, win = state["h"], state["conv"]
     ys = []
-    for t in range(s):
-        h_new, win_new, y = _recurrence_step(
-            d_skip, cfg.ssm_headdim, kernel, a_rate, h, win, x[:, t],
-            bmat[:, t], cmat[:, t], dt[:, t])
-        v_t = valid[:, t]
-        h = torch.where(v_t[:, None, None, None], h_new, h)
-        win = torch.where(v_t[:, None, None], win_new, win)
-        ys.append(y)
+    with named_scope("ssm.recurrence"):
+        for t in range(s):
+            with named_scope("ssm.step"):
+                h_new, win_new, y = _recurrence_step(
+                    d_skip, cfg.ssm_headdim, kernel, a_rate, h, win,
+                    x[:, t], bmat[:, t], cmat[:, t], dt[:, t])
+            v_t = valid[:, t]
+            h = torch.where(v_t[:, None, None, None], h_new, h)
+            win = torch.where(v_t[:, None, None], win_new, win)
+            ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, -1)
     return _out(p, y, z, u, cfg), {"h": h, "conv": win}
