@@ -41,7 +41,13 @@ seconds:
             the card could take with the weights at their stored bits and,
             for comparison, as f32; and paper-cim-120m's train forward (M
             = 8 x 256), where the kernel's per-call route also packs every
-            weight on every call (``pack_ms``);
+            weight on every call (``pack_ms``); ``ssm_scan_check``: the
+            SSD scan (``kernels.ssm_scan``) against the SSM block's
+            per-step loop on the same tensors, 8 lanes, mamba2-1.3b at
+            full width and reduced, S 1, 16, 24 and 32 (past the scan's
+            16-step tile), lengths 0, 1, S - 3 and S mixed: state, conv
+            window and y bitwise; at full width the scan's graph ms, the
+            loop's ms and the bound of its bytes at 3.35 TB/s;
 5. serve    one path per model, each from seeded random weights with every
             projection through GR-MAC row (FP6_E3M2 x FP4_E2M1, n_r 32,
             ENOB 8), 8 slots of greedy traffic, the launch counts set to 0
@@ -56,7 +62,9 @@ seconds:
                                  max_ctx 1024, prompts past the 512-token
                                  window: the rings wrap inside a chunked
                                  prefill and in decode;
-              serve_mamba2       mamba2-1.3b, full width and depth (193);
+              serve_mamba2       mamba2-1.3b, full width and depth (193;
+                                 and one launch of the SSD scan a layer a
+                                 dispatch, counted from 0 as the kernel's);
               serve_recurrentgemma  recurrentgemma-9b at full width, depth
                                  cut from 38 layers to one super-block
                                  (rglru, rglru, local; 22);
@@ -74,7 +82,8 @@ seconds:
             run on the card, which must be the projections per forward
             times the dispatches, replayed or eager, top kernels and host
             operators); the same traffic through the plain version
-            on the card (``cim_backend="ref"``), whose token streams must
+            on the card (``cim_backend="ref"``, and the SSM block's
+            per-step loop in place of the scan), whose token streams must
             be identical; and the model's reduced config (drawn on the
             CPU, moved to the card) on the CPU and on the card, whose
             logits must agree within 1e-5 (5e-5 for recurrentgemma, whose
@@ -112,8 +121,9 @@ seconds:
             ``Scheduler(spec=...)`` at full width with the served drafter
             (``"self"``) and a site override (the SSM projections
             digital), which forces partial acceptance, rollbacks and
-            repairs, each through the kernel and the plain version, equal
-            streams, counters and policy metrics;
+            repairs, each through the kernel and the scan and through the
+            plain version and the loop, equal streams, counters and policy
+            metrics;
 5d. train   paper-cim-120m trained at full width and depth (remat as
             configured, batch 8 x 256, AdamW, warmup 1): step 0's loss and
             gradients through the kernel (its per-call route) and through
@@ -128,7 +138,9 @@ seconds:
             ``*_prefix_hit``: for paper-cim-120m here, and gemma3-1b (a
             shared prefix past its 512-slot rings) and mamba2-1.3b in their
             serve phases, at full width, one request at a time: a prefix
-            hit's stream equal to a cold prefill's, the prefix adopted;
+            hit's stream equal to a cold prefill's (mamba2's cold run
+            through the loop, its hit through the scan), the prefix
+            adopted;
 5e. analysis  after ``train``: ``analysis_audit``, the ledger audit
             (``analysis.op_audit``) of all 11 configs x {prefill, decode,
             train} at full width on ``meta``: no untagged contraction, no
@@ -212,7 +224,8 @@ seconds:
 Full-width weights are drawn by a generator on the card (``init_params``
 on the card), so a 10 GB grok layer takes no host time.
 
-Then the ``kernels`` summary line, the card's name and power limit as
+Then the ``kernels`` summary line (the GR-MAC kernel's entry and the
+SSD scan's), the card's name and power limit as
 ``nvidia-smi`` prints them, and a last line
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before the
 last line; so does a machine without a CUDA card, or a directory without
@@ -270,14 +283,17 @@ MC_TOL = {"enob_uniform_16384": 0.0782, "enob_outliers_16384": 0.260,
 # serve_sampled: paper-cim-120m's replayed step with 6 of 8 lanes
 # sampling, the sampler's 41: 29 for the counter hash over the (8, 32 000)
 # tile, 12 for the Gumbel-max and the per-lane choice (eager: 1050).
-# mamba2, recurrentgemma and grok stay eager (recurrent blocks, MoE).
+# mamba2, recurrentgemma and grok stay eager (recurrent blocks, MoE);
+# mamba2's step runs each layer's recurrence as one launch of the SSD scan
+# (``kernels.ssm_scan``): 2375, where its per-step loop launched 3383
+# (48 layers x 22 launches became 48 x 1).
 # serve_spec: a speculative step of paper-cim-120m (k 4, the digital
 # drafter, 2 of 8 lanes sampled), eager: three draft dispatches of 1009 (a
 # decode step of another arch, whose 85 projections are cuBLAS GEMMs, not
 # an absmax reduction and a GR-MAC launch each) and one sampled verify of
 # 1144 (the chunked prefill over the 8-token bucket and the rejection rule
 # on the device); 3 x 1009 + 1144 = 4171, each part profiled alone
-STEP_LAUNCHES = {"serve": 2, "serve_gemma3": 2, "serve_mamba2": 3383,
+STEP_LAUNCHES = {"serve": 2, "serve_gemma3": 2, "serve_mamba2": 2375,
                  "serve_recurrentgemma": 298, "serve_grok": 608,
                  "serve_sampled": 41, "serve_spec": 4171}
 # Profiles of one count of GR-MAC kernels on the card at most
@@ -1102,7 +1118,9 @@ def main() -> int:
     from repro_torch.models import (decode_step, forward, init_cache,
                                     init_params, pack_params, prefill_step,
                                     to_device, train_loss)
+    from repro_torch.kernels import ssm_scan as scan_mod
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.serving import Engine, ServeConfig, energy_report
     from repro_torch.tree import tree_leaves, tree_map
 
@@ -1124,6 +1142,29 @@ def main() -> int:
     def reset_counts():
         grmac_matmul_cuda.launches = 0
         grmac_matmul_cuda.launches_by_design = dict.fromkeys(DESIGNS, 0)
+        scan_mod.ssm_scan.launches = 0
+
+    @contextlib.contextmanager
+    def plain_recurrence(on=True):
+        """With ``on``, the SSM block's recurrence runs its plain version,
+        the per-step loop, on the card too: the oracle's side of a
+        comparison. The CIM backend ``ref`` leaves the recurrence alone
+        (it is digital), and the block takes the scan by device."""
+        real = scan_mod.applies
+        if on:
+            scan_mod.applies = lambda device: False
+        try:
+            yield
+        finally:
+            scan_mod.applies = real
+
+    def scan_layers(arch) -> int:
+        """The SSM blocks of ``arch``: one scan launch each a dispatch."""
+        return sum(kind == "ssm" for kind in arch.blocks())
+
+    # the scan's launches in the paths that count them, and its check
+    scan_by_path = {}
+    scan_check = {}
 
     # ---------------------------------------------------------------- env
     require_full_f32()
@@ -1405,6 +1446,110 @@ def main() -> int:
 
     totals["sanitizing"] = {key: time_sanitizing(key, paper, m)
                             for key, m in (("decode", 8), ("prefill", 512))}
+
+    def scan_operands(arch, s, lengths):
+        """The SSD scan's operands at ``arch``'s SSM widths, all its heads,
+        ``SLOTS`` lanes, ``s`` steps, drawn on the card: x in the arch's
+        dtype and B / C as slices of wider projections (as the block hands
+        them over), the decay rate, D and the conv taps as the block makes
+        them, a state far from zero. ``lengths`` None: every step
+        commits, as in decode."""
+        nh, n, hd, w = (arch.ssm_heads, arch.ssm_state, arch.ssm_headdim,
+                        arch.conv_width)
+        chans = nh * hd
+        g = torch.Generator(device=dev).manual_seed(SEED + s)
+
+        def randn(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+
+        bc = randn(SLOTS, s, 2 * n)
+        return dict(
+            x=randn(SLOTS, s, 2 * chans).to(getattr(torch, arch.dtype))[
+                ..., chans:],
+            bmat=bc[..., :n], cmat=bc[..., n:],
+            dt=torch.nn.functional.softplus(randn(SLOTS, s, nh) - 1.0),
+            rate=torch.linspace(1.0, 16.0, nh, device=dev)[None, :],
+            d_skip=1.0 + 0.1 * randn(nh),
+            kernel=(0.1 * randn(w, chans)).to(
+                getattr(torch, arch.dtype)).float(),
+            h=randn(SLOTS, nh, n, hd), win=randn(SLOTS, w - 1, chans),
+            length=None if lengths is None else torch.tensor(
+                lengths, dtype=torch.int64, device=dev))
+
+    def scan_bytes(arch, s) -> int:
+        """Bytes the scan must move once at ``SLOTS`` lanes and ``s`` steps:
+        the state and the conv window read and written, x, B, C and dt
+        read, y written."""
+        nh, n, hd, w = (arch.ssm_heads, arch.ssm_state, arch.ssm_headdim,
+                        arch.conv_width)
+        xb = torch.finfo(getattr(torch, arch.dtype)).bits // 8
+        per_lane = (2 * 4 * (nh * n * hd + (w - 1) * nh * hd)
+                    + s * (xb * nh * hd + 4 * (2 * n + nh) + 4 * nh * hd))
+        return SLOTS * per_lane
+
+    def check_scan():
+        """The SSD scan against the SSM block's per-step loop, its plain
+        version, on the same tensors at ``SLOTS`` lanes: mamba2-1.3b at
+        full width (bf16 x, N 128, P 64) and reduced (N 16, P 32), S 1
+        (decode's no lengths, and lengths), 16 and 32 (a second 16-step
+        tile), 24 (a partial second tile), lengths 0, 1, S - 3 and S mixed
+        over the lanes. State, conv window and y bitwise. At full width
+        the scan's device time by CUDA-graph replay against the bytes it
+        must move at 3.35 TB/s, and the loop's time eagerly."""
+        for name in ("mamba2-1.3b", "mamba2-1.3b-reduced"):
+            arch = archs["mamba2-1.3b"]
+            arch = arch.reduced() if name.endswith("reduced") else arch
+            for s in (1, 16, 24, 32):
+                cases = [[max(0, v) for v in
+                          (0, 1, s - 3, s, s, s - 3, 1, 0)]]
+                cases += [None] if s == 1 else []
+                for lengths in cases:
+                    ops = scan_operands(arch, s, lengths)
+                    loop_len = (torch.full((SLOTS,), s, device=dev)
+                                if lengths is None else ops["length"])
+                    y_l, h_l, w_l = ssm_mod._loop(
+                        ops["d_skip"], arch.ssm_headdim, ops["kernel"],
+                        ops["rate"], ops["h"], ops["win"], ops["x"],
+                        ops["bmat"], ops["cmat"], ops["dt"], loop_len)
+                    before = scan_mod.ssm_scan.launches
+                    y_s, h_s, w_s = scan_mod.ssm_scan(**ops)
+                    torch.cuda.synchronize()
+                    err = float((y_s - y_l).abs().max())
+                    line = {"phase": "ssm_scan_check", "arch": name,
+                            "lanes": SLOTS, "steps": s, "lengths": lengths,
+                            "launches": scan_mod.ssm_scan.launches - before,
+                            "state_equal": bool(torch.equal(h_s, h_l)),
+                            "window_equal": bool(torch.equal(w_s, w_l)),
+                            "y_equal": bool(torch.equal(y_s, y_l)),
+                            "y_max_abs_err": err}
+                    scan_check["max_abs_err"] = max(
+                        err, scan_check.get("max_abs_err", 0.0))
+                    if name == "mamba2-1.3b" and lengths is not None:
+                        b_ms = scan_bytes(arch, s) / 3.35e12 * 1e3
+                        line.update(
+                            ms=graph_ms(lambda i: scan_mod.ssm_scan(**ops),
+                                        20),
+                            plain_ms=cuda_ms(lambda i: ssm_mod._loop(
+                                ops["d_skip"], arch.ssm_headdim,
+                                ops["kernel"], ops["rate"], ops["h"],
+                                ops["win"], ops["x"], ops["bmat"],
+                                ops["cmat"], ops["dt"], loop_len), 3),
+                            bytes=scan_bytes(arch, s), bound_ms=b_ms)
+                        scan_check.setdefault("by_steps", {})[s] = {
+                            k: line[k] for k in ("ms", "plain_ms",
+                                                 "bound_ms", "bytes")}
+                    emit({**line, "card": card})
+                    if not (line["launches"] == 1 and line["state_equal"]
+                            and line["window_equal"] and line["y_equal"]):
+                        fail(f"ssm_scan_check: {name} S {s} lengths "
+                             f"{lengths}: the scan differs from the loop "
+                             f"({line})")
+                    del ops, y_l, h_l, w_l, y_s, h_s, w_s
+        scan_by_path["ssm_scan_check"] = scan_mod.ssm_scan.launches
+        torch.cuda.empty_cache()
+
+    scan_mod.ssm_scan.launches = 0
+    check_scan()
     seconds("timing")
 
     # -------------------------------------------------------------- serve
@@ -1509,7 +1654,8 @@ def main() -> int:
 
     def profile_path(path, engine, arch, bucket):
         """Three more decode steps, then one full-bucket prefill dispatch
-        into a freed slot (the recurrences' per-token loop shows there);
+        into a freed slot (RG-LRU's per-token loop, mamba2's scan show
+        there);
         each forward ran ``per_forward`` GR-MAC kernels on the card,
         replayed or eager."""
         def dispatches():
@@ -1534,22 +1680,26 @@ def main() -> int:
                  grmac=lambda: per_forward(arch) * dispatches())
 
     def run_engine(arch, params, prompts, n_steps, serve_kw, backend):
-        engine = Engine(arch, params, ServeConfig(
-            batch_slots=SLOTS, cim_backend=backend, **serve_kw), device=dev)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        """Serve through the kernel (``backend`` None) or the plain version
+        (``"ref"``: the GR-MAC oracle and the SSM block's per-step loop)."""
         prefill_ms, decode_ms = [], []
-        for p in prompts:
-            t0 = time.perf_counter()
-            engine.add_request(p)
-            torch.cuda.synchronize()
-            prefill_ms.append(1e3 * (time.perf_counter() - t0))
         last = None
-        for _ in range(n_steps):
-            t0 = time.perf_counter()
-            last = engine.step()
+        with plain_recurrence(backend == "ref"):
+            engine = Engine(arch, params, ServeConfig(
+                batch_slots=SLOTS, cim_backend=backend, **serve_kw),
+                device=dev)
             torch.cuda.synchronize()
-            decode_ms.append(1e3 * (time.perf_counter() - t0))
+            torch.cuda.reset_peak_memory_stats()
+            for p in prompts:
+                t0 = time.perf_counter()
+                engine.add_request(p)
+                torch.cuda.synchronize()
+                prefill_ms.append(1e3 * (time.perf_counter() - t0))
+            for _ in range(n_steps):
+                t0 = time.perf_counter()
+                last = engine.step()
+                torch.cuda.synchronize()
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
         return (engine, prefill_ms, decode_ms,
                 torch.cuda.max_memory_allocated(), last)
 
@@ -1595,6 +1745,7 @@ def main() -> int:
         engine, prefill_ms, decode_ms, peak, last = run_engine(
             arch, params, prompts, n_steps, serve_kw, None)
         launches = grmac_matmul_cuda.launches
+        scans = scan_mod.ssm_scan.launches
         dropped = take_drops()
         by_design = dict(grmac_matmul_cuda.launches_by_design)
         launches_by_path[path] = launches
@@ -1604,6 +1755,9 @@ def main() -> int:
         dispatches = (engine.stats["prefill_dispatches"]
                       + engine.stats["decode_steps"])
         want = host_launches(fwd, dispatches, engine.graph_stats)
+        scan_want = scan_layers(arch) * dispatches
+        if scan_want:
+            scan_by_path[path] = scans
         streams = [list(t) for t in engine.tokens]
         served_streams[path] = streams
         emit({"phase": path, "arch": arch.name, "batch_slots": SLOTS,
@@ -1614,6 +1768,7 @@ def main() -> int:
               "kernel_launches_by_design": by_design,
               "launches_per_forward": fwd,
               "expected_launches": want,
+              "scan_launches": scans, "expected_scan_launches": scan_want,
               "prefill_ms": prefill_ms, "decode_ms": decode_ms,
               "decode_ms_median": float(np.median(decode_ms)),
               "decode_tok_s_median": SLOTS * 1e3 / float(np.median(
@@ -1623,6 +1778,9 @@ def main() -> int:
         if launches != want:
             fail(f"{path}: {launches} kernel launches for {dispatches} "
                  f"dispatches and {engine.graph_stats} (expected {want})")
+        if scans != scan_want:
+            fail(f"{path}: {scans} launches of the SSD scan for "
+                 f"{dispatches} dispatches (expected {scan_want})")
         if any(len(s) != len(p) + 1 + n_steps
                for s, p in zip(streams, prompts)):
             fail(f"{path}: a request did not emit 1 + n_steps tokens")
@@ -1645,11 +1803,12 @@ def main() -> int:
         take_drops()
         oracle, o_prefill_ms, o_decode_ms, o_peak, o_last = run_engine(
             arch, params, prompts, n_steps, serve_kw, "ref")
-        if grmac_matmul_cuda.launches != 0:
-            fail(f"{path}: the ref run launched the kernel")
+        if grmac_matmul_cuda.launches or scan_mod.ssm_scan.launches:
+            fail(f"{path}: the ref run launched the kernel or the scan")
         o_dropped = take_drops()
         same = [list(t) for t in oracle.tokens] == streams
         emit({"phase": f"{path}_oracle", "streams_equal": same,
+              "recurrence": "loop" if scan_want else None,
               "prefill_ms": o_prefill_ms,
               "decode_ms_median": float(np.median(o_decode_ms)),
               "peak_mem_bytes": o_peak,
@@ -1928,7 +2087,8 @@ def main() -> int:
         buckets' least, 8), one request at a time in slot 0, chunks of
         ``chunk`` tokens: with the prefix cache the second adopts the
         shared prefix, and both streams equal those of an engine without
-        the cache. Through the kernel, its launches counted."""
+        the cache, whose SSM blocks run the per-step loop (the hit's run
+        the scan). Through the kernel, its launches counted."""
         v = arch.vocab_size
         head = [int(t) for t in rng.integers(0, v, shared)]
         prompts = [head + [int(t) for t in rng.integers(0, v, n)]
@@ -1937,27 +2097,31 @@ def main() -> int:
         reset_counts()
         runs, dispatches, want = {}, 0, 0
         for cache in (None, 1 << 28):
-            eng = Engine(arch, params, ServeConfig(
-                batch_slots=SLOTS, prefix_cache_bytes=cache, **serve_kw),
-                device=dev)
-            streams, adopted, prefill_ms = [], [], []
-            for p in prompts:
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                slot = eng.begin_request(p)
-                adopted.append(eng.adopted_prefix(slot))
-                while eng.prefill_remaining(slot):
-                    eng.advance_prefill(slot, max_tokens=chunk)
-                eng.finish_prefill(slot)
-                torch.cuda.synchronize()
-                prefill_ms.append(1e3 * (time.perf_counter() - t0))
-                for _ in range(7):
-                    eng.step()
-                streams.append(eng.tokens[slot][len(p):])
-                eng.release_slot(slot)
+            # the cold run's recurrence through its plain version, the loop
+            with plain_recurrence(cache is None):
+                eng = Engine(arch, params, ServeConfig(
+                    batch_slots=SLOTS, prefix_cache_bytes=cache, **serve_kw),
+                    device=dev)
+                streams, adopted, prefill_ms = [], [], []
+                for p in prompts:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    slot = eng.begin_request(p)
+                    adopted.append(eng.adopted_prefix(slot))
+                    while eng.prefill_remaining(slot):
+                        eng.advance_prefill(slot, max_tokens=chunk)
+                    eng.finish_prefill(slot)
+                    torch.cuda.synchronize()
+                    prefill_ms.append(1e3 * (time.perf_counter() - t0))
+                    for _ in range(7):
+                        eng.step()
+                    streams.append(eng.tokens[slot][len(p):])
+                    eng.release_slot(slot)
             n = eng.stats["prefill_dispatches"] + eng.stats["decode_steps"]
             dispatches += n
             want += host_launches(fwd, n, eng.graph_stats)
+            if cache:             # the hit's run takes the scan
+                scan_want = scan_layers(arch) * n
             runs[cache] = dict(streams=streams, adopted=adopted,
                                prefill_ms=prefill_ms,
                                prefill_tokens=eng.stats["prefill_tokens"],
@@ -1965,7 +2129,10 @@ def main() -> int:
                                             if eng.prefix_cache else None))
             del eng
         launches = grmac_matmul_cuda.launches
+        scans = scan_mod.ssm_scan.launches
         launches_by_path[f"{path}_prefix_hit"] = launches
+        if scan_want:
+            scan_by_path[f"{path}_prefix_hit"] = scans
         cold, warm = runs[None], runs[1 << 28]
         same = cold["streams"] == warm["streams"]
         emit({"phase": f"{path}_prefix_hit", "arch": arch.name,
@@ -1978,14 +2145,15 @@ def main() -> int:
               "hit_prefill_tokens": warm["prefill_tokens"],
               "cache_stats": warm["cache_stats"],
               "kernel_launches": launches,
-              "expected_launches": want, "card": card})
+              "expected_launches": want, "scan_launches": scans,
+              "expected_scan_launches": scan_want, "card": card})
         if not same or warm["adopted"] != [0, shared]:
             fail(f"{path}: a prefix hit's stream differs from a cold "
                  f"prefill's, or it adopted {warm['adopted']} tokens, not "
                  f"[0, {shared}]")
-        if launches != want:
-            fail(f"{path}_prefix_hit: {launches} kernel launches for "
-                 f"{dispatches} dispatches")
+        if launches != want or scans != scan_want:
+            fail(f"{path}_prefix_hit: {launches} kernel launches and "
+                 f"{scans} scan launches for {dispatches} dispatches")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -2160,33 +2328,36 @@ def main() -> int:
     def spec_rollback(path, arch, params, serve_kw, drafters):
         """The ``Scheduler(spec=...)`` over a rollback family (SSM states
         and conv windows), 4 requests of 8 tokens, for each drafter
-        through the kernel and the plain version: equal streams, counters
-        and policy metrics; the site-override drafter must repair."""
+        through the kernel and the scan and through the plain version (the
+        GR-MAC oracle and the per-step loop): equal streams, counters and
+        policy metrics; the site-override drafter must repair."""
         fwd = per_forward(arch)
         prompts = prompts_of(arch, (3, 5, 8, 12))
         launches_by_path[f"{path}_spec"] = 0
+        scan_by_path[f"{path}_spec"] = 0
         for label, draft in drafters:
             out = {}
             for backend in (None, "ref"):
-                eng = Engine(arch, params, ServeConfig(
-                    batch_slots=SLOTS, cim_backend=backend, **serve_kw),
-                    device=dev)
-                seen = fetch_counted(eng)
-                clock = StepClock()
-                sched = Scheduler(eng, SchedulerConfig(), clock=clock.now,
-                                  spec=SpecConfig(k=4, draft=draft))
-                reset_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                for p in prompts:
-                    sched.submit(p, params=SamplingParams(max_tokens=8))
-                steps = 0
-                while not sched.idle():
-                    sched.step()
-                    clock.tick()
-                    steps += 1
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
+                with plain_recurrence(backend == "ref"):
+                    eng = Engine(arch, params, ServeConfig(
+                        batch_slots=SLOTS, cim_backend=backend, **serve_kw),
+                        device=dev)
+                    seen = fetch_counted(eng)
+                    clock = StepClock()
+                    sched = Scheduler(eng, SchedulerConfig(), clock=clock.now,
+                                      spec=SpecConfig(k=4, draft=draft))
+                    reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for p in prompts:
+                        sched.submit(p, params=SamplingParams(max_tokens=8))
+                    steps = 0
+                    while not sched.idle():
+                        sched.step()
+                        clock.tick()
+                        steps += 1
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
                 st = dict(eng.stats)
                 want = (fwd * (st["prefill_dispatches"]
                                + st["decode_steps"]
@@ -2197,8 +2368,15 @@ def main() -> int:
                 fetch_want = (len(prompts) + st["draft_dispatches"]
                               + st["verify_dispatches"] + st["decode_steps"])
                 launches = grmac_matmul_cuda.launches
+                scans = scan_mod.ssm_scan.launches
+                scan_want = (scan_layers(arch) * (
+                    st["prefill_dispatches"] + st["decode_steps"]
+                    + st["verify_dispatches"] + st["repair_dispatches"])
+                    + scan_layers(sched._spec.draft_arch)
+                    * st["draft_dispatches"]) if backend is None else 0
                 if backend is None:
                     launches_by_path[f"{path}_spec"] += launches
+                    scan_by_path[f"{path}_spec"] += scans
                 m = policy(sched.metrics())
                 out[backend] = ([r.generated for r in sched.requests], st,
                                 m, seen["fetch"])
@@ -2208,12 +2386,16 @@ def main() -> int:
                       "stats": st, "fetches": seen["fetch"],
                       "expected_fetches": fetch_want,
                       "kernel_launches": launches, "expected_launches": want,
+                      "scan_launches": scans,
+                      "expected_scan_launches": scan_want,
                       "accepted_tokens_per_step":
                           st["spec_tokens"] / max(1, st["spec_steps"]),
                       "wall_s": wall, "card": card})
-                if launches != want or seen["fetch"] != fetch_want:
+                if (launches != want or seen["fetch"] != fetch_want
+                        or scans != scan_want):
                     fail(f"{path}_spec {label}: {launches} kernel launches "
-                         f"(want {want}), {seen['fetch']} fetches (want "
+                         f"(want {want}), {scans} scan launches (want "
+                         f"{scan_want}), {seen['fetch']} fetches (want "
                          f"{fetch_want})")
                 del eng, sched
                 gc.collect()
@@ -3105,7 +3287,7 @@ def main() -> int:
         # prefill, another first in decode
         ("serve_gemma3", "gemma3-1b", (5, 12, 33, 60, 100, 200, 505, 600),
          16, dict(max_ctx=1024, prefill_bucket_max=16), None),
-        # mamba2-1.3b: short prompts, the recurrence loops over each chunk
+        # mamba2-1.3b: short prompts, one scan a layer over each chunk
         ("serve_mamba2", "mamba2-1.3b", (3, 5, 8, 12, 17, 24, 33, 40), 16,
          dict(max_ctx=512, prefill_bucket_max=32), None),
         # recurrentgemma-9b, one super-block: the plain version's head
@@ -3290,6 +3472,30 @@ def main() -> int:
         # paper-cim-120m's train forward at M = 8 x 256, with the per-call
         # route's packing of every weight (pack_ms)
         "train_forward": totals["train_forward"],
+    }, {
+        "name": "ssm_scan",
+        "route": "cuda",
+        "source": "src/repro_torch/csrc/ssm_scan.cu",
+        # no TPU kernel: the JAX package runs the serving recurrence as a
+        # lax.scan of plain steps; the port's plain version is the loop
+        "replaces": None,
+        "tpu_source": None,
+        "port_source": "src/repro_torch/csrc/ssm_scan.cu",
+        "plain_version": "src/repro_torch/models/ssm.py (_loop)",
+        "launches": sum(scan_by_path.values()),
+        "launches_by_path": scan_by_path,
+        "max_abs_err": scan_check["max_abs_err"],
+        "checked_vs_plain": True,
+        # one layer's scan at mamba2-1.3b's full width and SLOTS lanes, by
+        # the number of steps: "ms" device time by CUDA-graph replay,
+        # "plain_ms" the loop on the same tensors, "bound_ms" the bytes
+        # moved once at 3.35 TB/s
+        "by_steps": scan_check["by_steps"],
+        "ms": scan_check["by_steps"][16]["ms"],
+        "plain_ms": scan_check["by_steps"][16]["plain_ms"],
+        "bound_ms": scan_check["by_steps"][16]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
     }]})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

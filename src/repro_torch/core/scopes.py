@@ -16,9 +16,10 @@ The layers stamp their boundaries with lowercase dotted scopes:
 wait), ``engine.h2d`` (a host-to-device copy of lane state) and
 ``engine.choose``; the model's ``model.embed``, ``model.layer`` (each
 block), ``model.head`` and ``attn.cache_write``; the SSM block's
-``ssm.recurrence`` (a layer's prefill loop over the chunk) and
-``ssm.step`` (each time step: the loop's, padded steps included, and
-decode's one step); the CIM op's
+``ssm.recurrence`` (a layer's prefill recurrence over the chunk),
+``ssm.step`` (each time step of the plain loop, padded steps included,
+and decode's one step) and ``ssm.scan`` (on the card, the one launch of
+the scan that runs the recurrence over a dispatch); the CIM op's
 ``cim.prescale`` (the absmax of x) and ``cim.pack`` (a per-call weight
 packing); the trainer's ``train.forward``, ``train.backward`` and
 ``train.optimizer``.

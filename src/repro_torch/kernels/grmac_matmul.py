@@ -5,11 +5,12 @@ The kernel is ``csrc/grmac_matmul.cu`` and the two designs it routes to
 each and how it is laid out), each compiled in a plain and a sanitizing
 instantiation (``grmac_{decode,prefill}.cu`` and ``*_san.cu``). It replaces
 ``repro.kernels.grmac_matmul.grmac_matmul_pallas``. The first time it is
-needed, each source is compiled by its own ``nvcc`` process for
-``sm_90a``, all at once, and the objects are linked into one shared
-library with a plain C interface, in ``build/repro_torch/`` at the root of
-the checkout, loaded with ``ctypes``. The library's name carries a hash of
-the sources and flags, so an edited source is rebuilt.
+needed, each source of ``csrc/`` is compiled by its own ``nvcc`` process
+for ``sm_90a``, all at once (the SSD scan's ``ssm_scan.cu`` among them,
+bound by ``kernels/ssm_scan.py``), and the objects are linked into one
+shared library with a plain C interface, in ``build/repro_torch/`` at the
+root of the checkout, loaded with ``ctypes``. The library's name carries a
+hash of the sources and flags, so an edited source is rebuilt.
 
 ``grmac_matmul_cuda`` takes CUDA tensors only and launches the kernel or
 raises: there is no fallback to the plain version (``kernels/ref.py``),
@@ -50,7 +51,7 @@ from .packed import N_R_SUPPORTED, PackedWeight
 
 __all__ = ["N_R_SUPPORTED", "NVCC_FLAGS", "DESIGNS", "INSTANTIATIONS",
            "DECODE_MAX_M",
-           "DECODE_MAX_K", "BuildInfo", "build", "choose_design",
+           "DECODE_MAX_K", "BuildInfo", "build", "library", "choose_design",
            "grmac_matmul_cuda"]
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -146,6 +147,13 @@ def build() -> BuildInfo:
     _info = BuildInfo(str(lib_path), seconds,
                       log_path.read_text() if log_path.exists() else "")
     return _info
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (``build`` first): the SSD scan's wrapper
+    binds its own entry from it."""
+    build()
+    return _lib
 
 
 def _check_format(fmt, what: str) -> None:

@@ -6,9 +6,16 @@ Per head h with scalar decay a_t = exp(-dt_t · A_h):
     y_t = C_tᵀ H_t + D_h · x_t
 
 The port's counterpart of ``repro.models.ssm`` for decode and chunked
-prefill: the prefill runs the decode recurrence (``_recurrence_step``)
-over the chunk in a Python loop, so a bucketed prefill reproduces the
-token-by-token state trajectory. The four projections are CIM sites
+prefill: both run one recurrence step by step, so a bucketed prefill
+reproduces the token-by-token state trajectory. On the card a layer's
+recurrence over a whole dispatch (S = 1 in decode) is one launch of the
+hand-written scan ``kernels.ssm_scan`` (under the scope ``ssm.scan``); on
+the CPU and on ``meta`` it is ``_loop``, its plain version, which calls
+``_recurrence_step`` once a step. The scan keeps the loop's state and
+conv window bit for bit, and its y too at the engine's 8 lanes, where it
+sums over the state in the order cuBLAS takes for the loop's einsum (at
+other lane counts that sum runs in another order). The choice is by
+device alone. The four projections are CIM sites
 ("ssm"). The train path (``ssm_train``, no cache) is the chunked SSD
 algorithm (arXiv:2405.21060 §6): within a chunk of ``ssm_chunk`` steps the
 dual quadratic (attention-like) form, across chunks a scan over the chunk
@@ -22,12 +29,14 @@ run on this rank's heads, and y is gathered before the gated norm.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.scopes import named_scope
+from repro_torch.kernels import ssm_scan as scan
 from repro_torch.models.layers import (dense, dense_many, rmsnorm, silu,
                                       whole)
 from repro_torch.models.rglru import causal_conv, causal_conv_step, softplus
@@ -161,19 +170,60 @@ def _step_params(p, cfg: ArchConfig):
             torch.exp(_heads(p["A_log"], cfg))[None, :])
 
 
+def _loop(d_skip, hd: int, kernel, a_rate, h, win, x, bmat, cmat, dt,
+          length=None):
+    """The recurrence over a dispatch step by step (the scan's plain
+    version): x (B, S, NH * P), bmat / cmat (B, S, N), dt (B, S, NH); steps
+    at ``t >= length`` give their y but leave h and the conv window as they
+    were (``length`` None: every step commits). Returns (y (B, S, NH * P),
+    h, win)."""
+    b, s = x.shape[:2]
+    valid = (None if length is None else
+             torch.arange(s, device=x.device)[None, :] < length[:, None])
+    ys = []
+    for t in range(s):
+        with named_scope("ssm.step"):
+            h_new, win_new, y = _recurrence_step(
+                d_skip, hd, kernel, a_rate, h, win, x[:, t], bmat[:, t],
+                cmat[:, t], dt[:, t])
+        if valid is None:
+            h, win = h_new, win_new
+        else:
+            v_t = valid[:, t]
+            h = torch.where(v_t[:, None, None, None], h_new, h)
+            win = torch.where(v_t[:, None, None], win_new, win)
+        ys.append(y)
+    return torch.stack(ys, dim=1).reshape(b, s, -1), h, win
+
+
+def _recurrence(d_skip, hd: int, kernel, a_rate, h, win, x, bmat, cmat, dt,
+                length=None):
+    """A layer's recurrence over a dispatch: one launch of the card's scan
+    for CUDA tensors, ``_loop`` on the CPU and ``meta``; the device alone
+    decides. ``length`` None is decode's one step, which commits and is an
+    ``ssm.step`` on either device. Returns (y, h, win) as ``_loop``."""
+    if not scan.applies(x.device):
+        return _loop(d_skip, hd, kernel, a_rate, h, win, x, bmat, cmat, dt,
+                     length)
+    step = (named_scope("ssm.step") if length is None
+            else contextlib.nullcontext())
+    with step, named_scope("dig_ssm_ssd"), named_scope("ssm.scan"):
+        return scan.ssm_scan(x, bmat, cmat, dt, a_rate, d_skip, kernel, h,
+                             win, length)
+
+
 def ssm_decode(p, u: torch.Tensor, cfg: ArchConfig,
                state: dict) -> Tuple[torch.Tensor, dict]:
     """One token per lane: u (B, 1, D) -> (out (B, 1, D), new state)."""
-    b, s = u.shape[:2]
+    s = u.shape[1]
     if s != 1:
         raise ValueError(f"decode takes one token per lane, got S={s}")
     z, x, bmat, cmat, dt = _project(p, u, cfg)
     d_skip, kernel, a_rate = _step_params(p, cfg)
-    with named_scope("ssm.step"):
-        h_new, win_new, y = _recurrence_step(
-            d_skip, cfg.ssm_headdim, kernel, a_rate, state["h"],
-            state["conv"], x[:, 0], bmat[:, 0], cmat[:, 0], dt[:, 0])
-    out = _out(p, y.reshape(b, 1, -1), z, u, cfg)
+    y, h_new, win_new = _recurrence(d_skip, cfg.ssm_headdim, kernel, a_rate,
+                                    state["h"], state["conv"], x, bmat,
+                                    cmat, dt)
+    out = _out(p, y, z, u, cfg)
     return out, {"h": h_new, "conv": win_new}
 
 
@@ -184,23 +234,12 @@ def ssm_prefill(p, u: torch.Tensor, cfg: ArchConfig, state: dict,
     ``length`` (B,) counts the valid leading tokens per lane; steps at
     ``t >= length`` leave the SSM state and the conv window as they were
     (length-0 lanes keep ``state`` bitwise). The projections run once over
-    the whole chunk.
+    the whole chunk, the recurrence in one launch of the scan on the card.
     """
-    b, s = u.shape[:2]
     z, x, bmat, cmat, dt = _project(p, u, cfg)
     d_skip, kernel, a_rate = _step_params(p, cfg)
-    valid = torch.arange(s, device=u.device)[None, :] < length[:, None]
     h, win = state["h"], state["conv"]
-    ys = []
     with named_scope("ssm.recurrence"):
-        for t in range(s):
-            with named_scope("ssm.step"):
-                h_new, win_new, y = _recurrence_step(
-                    d_skip, cfg.ssm_headdim, kernel, a_rate, h, win,
-                    x[:, t], bmat[:, t], cmat[:, t], dt[:, t])
-            v_t = valid[:, t]
-            h = torch.where(v_t[:, None, None, None], h_new, h)
-            win = torch.where(v_t[:, None, None], win_new, win)
-            ys.append(y)
-    y = torch.stack(ys, dim=1).reshape(b, s, -1)
+        y, h, win = _recurrence(d_skip, cfg.ssm_headdim, kernel, a_rate, h,
+                                win, x, bmat, cmat, dt, length)
     return _out(p, y, z, u, cfg), {"h": h, "conv": win}

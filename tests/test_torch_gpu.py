@@ -15,8 +15,10 @@ gradients through the kernel (its per-call route, under remat) against
 the plain version's, and the kernel's sanitizing instantiation (both
 designs, every granularity, NaN and ragged shapes) counting exactly what
 the plain version's checks count, its output bitwise the plain
-instantiation's, and a profiled train step's scopes on autograd's device
-thread.
+instantiation's, a profiled train step's scopes on autograd's device
+thread, and the SSD scan (``kernels.ssm_scan``) against the SSM block's
+per-step loop: state and conv window bitwise, y bitwise at 8 lanes (within
+its reordered sum at others), an engine's tokens equal.
 
 Marked ``gpu``; each test decides inside itself whether a card is present
 and skips without one. This file imports no JAX, so it also runs on the
@@ -1115,3 +1117,204 @@ def test_train_step_scopes_on_the_card():
             threads.setdefault(chain[0], set()).add(e.thread)
     assert set(threads) == {"train.forward", "model.layer"}, threads
     assert not threads["train.forward"] & threads["model.layer"]
+
+
+# ---------------------------------------------------------------- SSD scan
+def _scan_operands(name, s, lengths):
+    """The scan's operands at ``name``'s SSM widths (all heads, a lane for
+    each of ``lengths``, or 8 where it is None: decode, every step
+    commits), drawn on the card: x in the config's dtype, B and C as the
+    halves of one (B, S, 2N) projection (row strides of a slice), the decay
+    rate, D and the f32 conv taps as the block makes them, and a state far
+    from zero."""
+    from repro_torch.configs import get_config
+
+    arch = get_config("mamba2-1.3b")
+    arch = arch.reduced() if name.endswith("reduced") else arch
+    b = 8 if lengths is None else len(lengths)
+    nh, n, hd, w = (arch.ssm_heads, arch.ssm_state, arch.ssm_headdim,
+                    arch.conv_width)
+    chans = nh * hd
+    dtype = getattr(torch, arch.dtype)
+    gen = torch.Generator(device="cuda").manual_seed(27 + s + b)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    bc = randn(b, s, 2 * n)
+    ops = dict(
+        x=randn(b, s, 2 * chans).to(dtype)[..., chans:],
+        bmat=bc[..., :n], cmat=bc[..., n:],
+        dt=torch.nn.functional.softplus(randn(b, s, nh) - 1.0),
+        rate=torch.linspace(1.0, 16.0, nh, device="cuda")[None, :],
+        d_skip=torch.ones(nh, device="cuda") + 0.1 * randn(nh),
+        kernel=(0.1 * randn(w, chans)).to(dtype).to(torch.float32),
+        h=randn(b, nh, n, hd), win=randn(b, w - 1, chans),
+        length=None if lengths is None else torch.tensor(
+            lengths, dtype=torch.int64, device="cuda"))
+    return arch, ops
+
+
+def _loop_bound(arch, ops):
+    """The loop's per-step sum of |C_t[n] H_t[n, p]| over n, (B, S, C):
+    what bounds the reordering of y's N-term sum."""
+    from repro_torch.models import ssm
+
+    h, win, out = ops["h"], ops["win"], []
+    s = ops["x"].shape[1]
+    length = ops["length"]
+    for t in range(s):
+        h_new, win_new, _ = ssm._recurrence_step(
+            ops["d_skip"], arch.ssm_headdim, ops["kernel"], ops["rate"], h,
+            win, ops["x"][:, t], ops["bmat"][:, t], ops["cmat"][:, t],
+            ops["dt"][:, t])
+        out.append(torch.einsum("bn,bhnp->bhp", ops["cmat"][:, t].abs(),
+                                h_new.abs()).flatten(1))
+        v = (torch.ones_like(ops["dt"][:, 0, 0], dtype=torch.bool)
+             if length is None else t < length)
+        h = torch.where(v[:, None, None, None], h_new, h)
+        win = torch.where(v[:, None, None], win_new, win)
+    return torch.stack(out, dim=1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lanes", [8, 4])
+@pytest.mark.parametrize("s", [1, 8, 16, 24, 32])
+@pytest.mark.parametrize("name", ["mamba2-1.3b", "mamba2-1.3b-reduced"])
+def test_ssm_scan_equals_the_loop_on_the_card(name, s, lanes):
+    """The scan against the per-step loop called on the same CUDA tensors,
+    at full width (bf16 x, N 128, P 64) and reduced (f32, N 16, P 32), with
+    lengths 0, 1, S - 3 and S mixed over the lanes (and, at S = 1 and 8
+    lanes, decode's no lengths); S 24 and 32 run a second 16-step tile, a
+    partial one at 24, and lengths 21 and 29 end inside it: the new state
+    and conv window bitwise, and
+    lanes that commit no step unchanged bitwise. y bitwise at the engine's
+    8 lanes, where the scan sums over n in the order cuBLAS's gemv takes
+    for the loop's einsum; at 4 lanes cuBLAS splits n otherwise, and y is
+    held within the reordering of its N-term f32 sum, N 2**-24 sum_n |c_n
+    h_n|, plus one ulp of y for the rounding of the skip term's add after
+    it. One launch a call; no kernel of the scan is named like a GR-MAC
+    kernel."""
+    _need_card()
+    from repro_torch.kernels.ssm_scan import ssm_scan
+    from repro_torch.models import ssm
+
+    cases = [[0, 1, s - 3, s, s, s - 3, 1, 0][:lanes]]
+    cases += [None] if s == 1 and lanes == 8 else []
+    for lengths in cases:
+        arch, ops = _scan_operands(name, s, lengths)
+        length = ops["length"]
+        loop_len = (torch.full((lanes,), s, device="cuda")
+                    if length is None else length)
+        y_l, h_l, w_l = ssm._loop(
+            ops["d_skip"], arch.ssm_headdim, ops["kernel"], ops["rate"],
+            ops["h"], ops["win"], ops["x"], ops["bmat"], ops["cmat"],
+            ops["dt"], loop_len)
+        before = ssm_scan.launches
+        (y_s, h_s, w_s), ran, _ = _grmac_run(lambda: ssm_scan(**ops))
+        assert ssm_scan.launches == before + 1 and ran == 0
+        assert torch.equal(h_s, h_l), lengths
+        assert torch.equal(w_s, w_l), lengths
+        for lane in range(lanes):
+            if loop_len[lane] <= 0:
+                assert torch.equal(h_s[lane], ops["h"][lane])
+                assert torch.equal(w_s[lane], ops["win"][lane])
+        assert y_s.shape == y_l.shape and y_s.dtype == torch.float32
+        if lanes == 8:
+            assert torch.equal(y_s, y_l), lengths
+        else:
+            bound = (arch.ssm_state * 2.0**-24 * _loop_bound(arch, ops)
+                     + 2.0**-23 * y_l.abs())
+            assert bool(torch.all((y_s - y_l).abs() <= bound)), lengths
+
+
+@pytest.mark.gpu
+def test_ssm_scan_kernel_is_named_apart_from_grmac():
+    """The profiler sees the scan's launches as kernels whose name holds
+    ``scan_kernel`` and not ``grmac`` (the GR-MAC roofline counts kernels
+    by that name). Late in a long process a profile can come back without
+    device records (the first ones, or all of them), so the scan runs
+    several times after other work, in up to three profiles, and the
+    first profile that recorded device kernels is read."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    _, ops = _scan_operands("mamba2-1.3b", 16, [16] * 8)
+    ssm_scan(**ops)
+    torch.cuda.synchronize()
+    names = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            ops["h"].sum()
+            for _ in range(4):
+                ssm_scan(**ops)
+            torch.cuda.synchronize()
+        names = {e.key: e.count for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and not e.is_user_annotation}
+        if names:
+            break
+    scans = [k for k in names if "scan_kernel" in k]
+    assert len(scans) == 1 and 1 <= names[scans[0]] <= 4, names
+    assert not any("grmac" in k for k in names), names
+
+
+# Whether a mamba2 engine in GR-MAC mode serves the loop's tokens through
+# the scan, by (config, lanes). At 8 lanes the scan sums y over the state
+# in cuBLAS's order for the loop's einsum, so y and the tokens are the
+# loop's bit for bit; at other lane counts cuBLAS splits that sum
+# otherwise, y is a reordered f32 sum, and one ulp of y can flip a GR-MAC
+# code downstream. What the card showed (H100, CUDA 12.8):
+SCAN_SERVES_THE_LOOPS_TOKENS = {
+    ("mamba2-1.3b-reduced", 4): True, ("mamba2-1.3b-reduced", 8): True,
+    ("mamba2-1.3b-reduced", 16): True, ("mamba2-1.3b", 4): False,
+    ("mamba2-1.3b", 8): True}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,lanes", sorted(SCAN_SERVES_THE_LOOPS_TOKENS))
+def test_ssm_engine_serves_the_loops_tokens_through_the_scan(name, lanes,
+                                                             monkeypatch):
+    """mamba2 in GR-MAC mode (reduced, and at full width), a prompt a lane,
+    served 24 engine steps through the scan and through the per-step loop
+    on the card (``applies`` false), chunks of up to 32 tokens (the scan's
+    second tile): the scan ran once a layer a dispatch, the loop never, and
+    the tokens are the loop's at 8 lanes; at other lane counts whether they
+    are is held to what the card showed (``SCAN_SERVES_THE_LOOPS_TOKENS``),
+    so a change in cuBLAS's order or the scan's shows."""
+    _need_card()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssm_scan as scan
+    from repro_torch.models import init_params
+    from repro_torch.serving import Engine, ServeConfig
+
+    arch = get_config("mamba2-1.3b")
+    arch = arch.reduced() if name.endswith("reduced") else arch
+    arch = arch.replace(cim=arch.cim.with_mode("grmac"))
+    params = init_params(arch, seed=0)
+    runs = []
+    for through in ("scan", "loop"):
+        if through == "loop":
+            monkeypatch.setattr(scan, "applies", lambda device: False)
+        eng = Engine(arch, params, ServeConfig(batch_slots=lanes, max_ctx=128,
+                                               prefill_bucket_max=32))
+        before = scan.ssm_scan.launches
+        for n in (3, 12, 20, 40, 7, 1, 16, 33,
+                  5, 9, 27, 2, 14, 38, 11, 24)[:lanes]:
+            eng.add_request(list(range(1, n + 1)))
+        for _ in range(24):
+            eng.step()
+        dispatches = (eng.stats["prefill_dispatches"]
+                      + eng.stats["decode_steps"])
+        launches = scan.ssm_scan.launches - before
+        assert launches == (arch.n_layers * dispatches
+                            if through == "scan" else 0)
+        runs.append([list(t) for t in eng.tokens])
+        del eng
+    pairs = [(a, b) for x, y in zip(*runs) for a, b in zip(x, y)]
+    same = sum(a == b for a, b in pairs)
+    assert (runs[0] == runs[1]) == SCAN_SERVES_THE_LOOPS_TOKENS[
+        (name, lanes)], (name, lanes, f"{same} of {len(pairs)} tokens equal")
